@@ -1,0 +1,16 @@
+"""rotate_yolov3_tpu_torch — the PyTorch/CUDA port of ``rotate_yolov3_tpu``.
+
+The JAX package beside it stays the reference; this package mirrors its
+layout and names so each counterpart is easy to find, imports ``torch`` and
+numpy only (never jax, never ``rotate_yolov3_tpu``), and replaces each TPU
+Pallas kernel on its path with a CUDA kernel written by hand for Hopper
+(``csrc/``, built by ``_build`` at first use). On a CPU tensor every kernel
+wrapper runs its plain PyTorch version instead.
+
+Ported so far: the serving path of ``Detector`` (cfg and ``.weights``
+loading, the BN-folded Darknet, score-first top-k, gathered decode with the
+row-gather kernel, rotated NMS with the skew-IoU kill-mask kernel), and
+``python -m rotate_yolov3_tpu_torch.detect``.
+"""
+
+__version__ = "0.1.0"

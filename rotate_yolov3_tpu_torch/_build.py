@@ -1,0 +1,84 @@
+"""Build the hand-written CUDA kernels of ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` exports a plain C launch function. ``nvcc`` compiles
+it for Hopper (``sm_90a``) into its own shared library, which is loaded with
+``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
+Libraries go to ``_build/`` beside this file (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused. Nothing here runs at import time: the
+package imports, and its CPU paths run, on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per-file flags: the skew-IoU arithmetic must not be contracted into FMAs
+# (see the note at the top of csrc/skew_kill.cu)
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"skew_kill": ("-fmad=false",)}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# name -> (build seconds, nvcc/ptxas report) for libraries built in this
+# process; a library found already built is absent
+BUILD_LOG: Dict[str, Tuple[float, str]] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin``, ``PATH``, then the
+    toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are compiled from "
+        "rotate_yolov3_tpu_torch/csrc/ at first use on a GPU machine "
+        "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Return the loaded library of ``csrc/<name>.cu``, building it first if
+    no library for this source and these flags exists yet."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha256(
+        src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"lib{name}-{digest}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+        BUILD_LOG[name] = (time.perf_counter() - t0,
+                           proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(str(path))
+    _LIBS[name] = lib
+    return lib
+
+
+def kernel_names() -> Tuple[str, ...]:
+    """Names of every kernel source under ``csrc/``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))

@@ -1,0 +1,177 @@
+"""Rotated YOLO head decode: raw (B, H, W, na·no) maps -> boxes and scores.
+
+Torch counterpart of ``rotate_yolov3_tpu/models/yolo_head.py``. Per cell:
+
+    bx = (sigmoid(tx) + cx) * stride        bw = pw * exp(clip(tw, ±8))
+    by = (sigmoid(ty) + cy) * stride        bh = ph * exp(clip(th, ±8))
+    theta = anchor_angle + ANGLE_RANGE * tanh(t_theta)
+    obj, cls = sigmoid
+
+Anchors are (wh-major, angle-minor): anchor k = (wh[k // n_ang],
+angles[k % n_ang]). ``decode_gathered`` ports the uniform-na path of the
+reference (every cfg in ``cfg/`` has one na for all heads): the heads' cell
+rows are concatenated and the K candidate rows gathered once, through
+kernel A (``ops.gather_rows``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .darknet import YoloSpec
+
+# Max angle offset a head can regress away from its anchor's angle (radians).
+ANGLE_RANGE = math.pi / 6
+# exp clamp for w/h regression: keeps early-training decode finite.
+_WH_CLAMP = 8.0
+
+
+def head_anchors(spec: YoloSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """Effective anchors of a head: (na, 2) w/h in pixels and (na,) angles."""
+    wh = np.asarray(spec.anchors_wh, np.float32)          # (n_wh, 2)
+    ang = np.asarray(spec.anchor_angles, np.float32)      # (n_ang,)
+    n_wh, n_ang = len(wh), len(ang)
+    return np.repeat(wh, n_ang, axis=0), np.tile(ang, n_wh)
+
+
+def decode_head(raw: torch.Tensor, spec: YoloSpec) -> torch.Tensor:
+    """Decode one head's raw map into (B, H*W*na, 6+nc) rows: cx, cy, w, h
+    (net-input pixels), theta (radians), obj, per-class probabilities."""
+    b, h, w, c = raw.shape
+    assert c == spec.na * spec.no, (c, spec.na, spec.no)
+    p = raw.reshape(b, h, w, spec.na, spec.no)
+    anchors_wh, anchor_angles = head_anchors(spec)
+    awh = torch.from_numpy(anchors_wh).to(raw.device)
+    aang = torch.from_numpy(anchor_angles).to(raw.device)
+
+    gy, gx = torch.meshgrid(
+        torch.arange(h, dtype=p.dtype, device=p.device),
+        torch.arange(w, dtype=p.dtype, device=p.device), indexing="ij")
+    grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
+
+    xy = (torch.sigmoid(p[..., 0:2]) + grid) * spec.stride
+    wh = awh[None, None, None] * torch.exp(
+        torch.clamp(p[..., 2:4], -_WH_CLAMP, _WH_CLAMP))
+    theta = (aang[None, None, None]
+             + ANGLE_RANGE * torch.tanh(p[..., 4]))[..., None]
+    obj = torch.sigmoid(p[..., 5:6])
+    cls = torch.sigmoid(p[..., 6:])
+    out = torch.cat([xy, wh, theta, obj, cls], dim=-1)
+    return out.reshape(b, h * w * spec.na, spec.no)
+
+
+def decode_all(head_raws: Sequence[torch.Tensor],
+               yolo_specs: Sequence[YoloSpec]) -> torch.Tensor:
+    """Decode + concatenate all heads: (B, N_total, 6+nc)."""
+    assert len(head_raws) == len(yolo_specs)
+    return torch.cat([decode_head(r, s) for r, s in zip(head_raws,
+                                                        yolo_specs)], dim=1)
+
+
+def field_major_perm(spec: YoloSpec) -> np.ndarray:
+    """Head-conv output-channel permutation, anchor-major (a*no + f) ->
+    field-major (f*na + a): ``perm[f*na + a] = a*no + f``, applied to dim 0
+    of the OIHW kernel and to the bias."""
+    na, no = spec.na, spec.no
+    perm = np.empty(na * no, np.int64)
+    for f in range(no):
+        for a in range(na):
+            perm[f * na + a] = a * no + f
+    return perm
+
+
+def head_scores(raw: torch.Tensor, spec: YoloSpec,
+                field_major: bool = False) -> torch.Tensor:
+    """Detection scores straight from the raw head map: (B, H*W*na),
+    sigmoid(obj) * max_c sigmoid(cls_c), in cell-major / anchor-minor order.
+    """
+    b = raw.shape[0]
+    if field_major:
+        na = spec.na
+        obj = torch.sigmoid(raw[..., 5 * na:6 * na])
+        m = raw[..., 6 * na:7 * na]
+        for c in range(1, spec.num_classes):
+            # max of logits == argmax of sigmoids (monotonic)
+            m = torch.maximum(m, raw[..., (6 + c) * na:(7 + c) * na])
+        return (obj * torch.sigmoid(m)).reshape(b, -1)
+    p = raw.reshape(*raw.shape[:3], spec.na, spec.no)
+    obj = torch.sigmoid(p[..., 5])
+    if spec.num_classes > 1:
+        cls = torch.sigmoid(p[..., 6:]).amax(dim=-1)
+    else:
+        cls = torch.sigmoid(p[..., 6])
+    return (obj * cls).reshape(b, -1)
+
+
+def decode_gathered(head_raws: Sequence[torch.Tensor],
+                    yolo_specs: Sequence[YoloSpec], idx: torch.Tensor,
+                    field_major: bool = False) -> torch.Tensor:
+    """Decode only the selected predictions.
+
+    ``idx``: (B, K) int32 flat indices into the concatenated prediction axis
+    (heads in order, each H*W*na cell-major / anchor-minor). Returns
+    (B, K, 6+nc) f32 rows equal to ``decode_all(...)[b, idx]``.
+
+    With one na for all heads, ``idx // na`` is the global cell row and
+    ``idx % na`` the anchor: one row gather (kernel A) over the
+    concatenated (B, cells, na·no) maps, then the anchor's ``no`` fields are
+    picked from the gathered row.
+    """
+    from ..ops.gather_rows import gather_rows
+
+    if len({s.na for s in yolo_specs}) != 1:
+        raise NotImplementedError(
+            "decode_gathered: heads with different na (the reference's "
+            "per-head path) are not ported yet")
+    b, k = idx.shape
+    no, na = yolo_specs[0].no, yolo_specs[0].na
+
+    cells_all = torch.cat([r.reshape(r.shape[0], -1, na * no)
+                           for r in head_raws], dim=1)
+    cell_g = torch.div(idx, na, rounding_mode="floor")
+    a_idx = (idx - cell_g * na).long()
+    r_cells = gather_rows(cells_all.contiguous(), cell_g.contiguous())
+
+    # lane of field f of the selected anchor
+    f = torch.arange(no, device=idx.device, dtype=torch.int64)
+    a = a_idx[..., None]
+    lanes = f * na + a if field_major else a * no + f
+    rows = torch.gather(r_cells, 2, lanes).float()          # (B, K, no)
+
+    zf = torch.zeros((b, k), dtype=torch.float32, device=idx.device)
+    stride_v, gx, gy = zf, zf, zf
+    aw_v, ah_v, aang_v = zf, zf, zf
+    off = 0
+    for raw, s in zip(head_raws, yolo_specs):
+        h, w = raw.shape[1], raw.shape[2]
+        local = cell_g - off
+        in_h = (local >= 0) & (local < h * w)
+        stride_v = torch.where(in_h, float(s.stride), stride_v)
+        gx = torch.where(in_h, (local % w).float(), gx)
+        gy = torch.where(in_h, torch.div(local, w, rounding_mode="floor")
+                         .float(), gy)
+        awh_h, aang_h = head_anchors(s)
+        awh_t = torch.from_numpy(awh_h).to(idx.device)
+        aang_t = torch.from_numpy(aang_h).to(idx.device)
+        aw_v = torch.where(in_h, awh_t[a_idx, 0], aw_v)
+        ah_v = torch.where(in_h, awh_t[a_idx, 1], ah_v)
+        aang_v = torch.where(in_h, aang_t[a_idx], aang_v)
+        off += h * w
+    return _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v)
+
+
+def _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v):
+    """(B, K, no) raw rows + per-row grid/anchor metadata -> (B, K, 6+nc)."""
+    xy = (torch.sigmoid(rows[..., 0:2])
+          + torch.stack([gx, gy], dim=-1)) * stride_v[..., None]
+    wh = torch.stack([aw_v, ah_v], dim=-1) * torch.exp(
+        torch.clamp(rows[..., 2:4], -_WH_CLAMP, _WH_CLAMP))
+    theta = (aang_v + ANGLE_RANGE * torch.tanh(rows[..., 4]))[..., None]
+    obj = torch.sigmoid(rows[..., 5:6])
+    cls = torch.sigmoid(rows[..., 6:])
+    return torch.cat([xy, wh, theta, obj, cls], dim=-1)
+
