@@ -19,7 +19,24 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      plain versions from the same boxes, and the f32 card result must agree
      with the plain-PyTorch path run on the CPU from the same head maps;
   5. img/s at B = 128 for max_det 128 and 512 in bf16, the stage split of
-     one such batch, and the B = 1 latency.
+     one such batch, and the B = 1 latency;
+  6. the fused greedy NMS (kernel C) against kernel B + the greedy fixpoint
+     (bit for bit) and against its plain version (on every image with no
+     pair within 1e-4 of the threshold), at B = 8, K = 512 without and
+     with 15 classes, at K = 1024 and at K = 200 with 15 classes, with a
+     worst-case suppression chain and an all-invalid image; its time
+     beside both;
+  7. the DOTA slice: ``DeviceTilePipeline`` over ``Detector(
+     "cfg/yolov3-rotate-dota.cfg")`` at 608² (25 tiles of a seeded
+     synthetic 4000² scene, a K = 1024 merge) in bf16 and in f32 (TF32
+     off): kernels A, B and C must launch through ``pipe(img)`` alone, the
+     merged output must equal the merge recomputed through the plain
+     kernel C from the same per-tile detections, the f32 card letterbox
+     must agree with the CPU one; scene ms, tiles/s, the stage split and
+     peak memory;
+  8. ``fused_greedy=True`` on the HRSC serving heads at B = 128, max_det
+     512: the same detections and keep as the default two-stage path, and
+     kernel C's time beside kernel B + fixpoint.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -34,20 +51,28 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "cfg", "yolov3-rotate-hrsc.cfg")
+DOTA_CFG = os.path.join(ROOT, "cfg", "yolov3-rotate-dota.cfg")
+DEVICE = "cuda"
 B_CHECK = 8          # batch of the kernel and slice checks
 B_BENCH = 128        # batch of the throughput phase
 THR = 0.4            # NMS IoU threshold of the product path
 CONF = 0.05          # keeps every stage live with random weights
 BAND = 1e-4          # kill pairs this close to THR may round either way
+SCENE = 4000         # side of the synthetic DOTA scene: 25 tiles of 1024
+NET_IMG = None       # net input of phases 7-8 (None: the cfg's, 608)
+MERGE_THR = 0.3      # cross-tile merge NMS threshold (dota.py default)
 
 KERNELS = {
     "gather_rows": ("rotate_yolov3_tpu_torch/csrc/gather_rows.cu",
                     "rotate_yolov3_tpu/ops/gather_rows.py:100"),
     "skew_kill": ("rotate_yolov3_tpu_torch/csrc/skew_kill.cu",
                   "rotate_yolov3_tpu/ops/skew_iou_pallas.py:501"),
+    "nms_greedy": ("rotate_yolov3_tpu_torch/csrc/nms_greedy.cu",
+                   "rotate_yolov3_tpu/ops/nms_pallas.py:189"),
 }
 
 
@@ -81,14 +106,22 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def phase_build(_build) -> None:
-    for name in _build.kernel_names():
+    """One nvcc per kernel source, all started together."""
+    def build(name):
         t0 = time.perf_counter()
         _build.load(name)
-        dt = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    names = _build.kernel_names()
+    with ThreadPoolExecutor(len(names)) as pool:
+        times = dict(zip(names, pool.map(build, names)))
+    for name, dt in times.items():
         report = _build.BUILD_LOG.get(name, (dt, "(already built)"))[1]
         ptxas = [l.strip() for l in report.splitlines()
                  if "registers" in l or "spill" in l]
         log(f"build {name}: {dt:.2f} s; " + " | ".join(ptxas))
+    log(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_gather(torch, card, results) -> None:
@@ -201,11 +234,11 @@ def _check_detections(torch, dets, mask, max_det: int) -> None:
 def phase_slice(torch, card, results) -> None:
     from rotate_yolov3_tpu_torch.detector import Detector
     from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy_ref
     from rotate_yolov3_tpu_torch.ops.rotated_nms import (decode_candidates,
                                                          nms_from_candidates,
                                                          select_candidates)
-    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import (
-        skew_kill_matrix, skew_kill_matrix_ref)
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_kill_matrix
     from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
 
     gen = torch.Generator().manual_seed(3)
@@ -250,7 +283,7 @@ def phase_slice(torch, card, results) -> None:
                                                 THR, use_cls, det.max_det)
             out_r, keep_r = nms_from_candidates(
                 boxes, scores, cls, valid, THR, use_cls, det.max_det,
-                kill_fn=skew_kill_matrix_ref)
+                keep_fn=nms_greedy_ref)
             if not (torch.equal(keep_k, keep_r) and torch.equal(out_k, out_r)):
                 raise AssertionError(f"slice {name}: kernel keep differs "
                                      f"from the plain recompute")
@@ -428,6 +461,317 @@ def phase_bench(torch, card) -> None:
         del det, heads, scores, idx, valid, boxes, kill
 
 
+def _nms_boxes(torch, gen, b: int, k: int, n_cls: int, special: bool):
+    """b images of k score-sorted detection boxes (the last eighth zero-area
+    padding, one row in ten below threshold), optional class ids. With
+    ``special``, image 0 is a worst-case suppression chain (every box
+    overlaps its neighbour with IoU 0.5 and the next but one with 0.2, so
+    the greedy result alternates and the fixpoint needs ~K passes) and the
+    last image has no valid row."""
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        (b, k), generator=gen, device=DEVICE)
+    boxes = torch.stack([u(0, 800), u(0, 800), u(10, 120), u(10, 120),
+                         u(-3.1416, 3.1416)], dim=-1)
+    valid = torch.rand((b, k), generator=gen, device=DEVICE) > 0.1
+    valid[:, k - k // 8:] = False
+    cls = (torch.randint(0, n_cls, (b, k), generator=gen, device=DEVICE,
+                         dtype=torch.int32) if n_cls else None)
+    if special:
+        i = torch.arange(k, device=DEVICE, dtype=torch.float32)
+        boxes[0] = torch.stack([10 + 4 * i, torch.full_like(i, 300.0),
+                                torch.full_like(i, 12.0),
+                                torch.full_like(i, 12.0),
+                                torch.zeros_like(i)], dim=-1)
+        valid[0] = True
+        if cls is not None:
+            cls[0] = 3
+        valid[-1] = False
+    boxes = torch.where(valid[..., None], boxes, 0.0).contiguous()
+    return boxes, cls, valid
+
+
+def phase_nms_greedy(torch, card, results) -> None:
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import (nms_greedy,
+                                                        nms_greedy_ref)
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import keep_two_stage
+    from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    cases = [  # (B, K, classes, thr, chain + all-invalid images)
+        (B_CHECK, 512, 0, THR, True), (B_CHECK, 512, 15, THR, True),
+        (1, 1024, 15, MERGE_THR, False), (2, 1024, 15, MERGE_THR, True),
+        (3, 200, 15, MERGE_THR, True)]   # K not a multiple of 32
+    for b, k, n_cls, thr, special in cases:
+        boxes, cls, valid = _nms_boxes(torch, gen, b, k, n_cls, special)
+        keep = nms_greedy(boxes, cls, valid, thr)
+        two_stage = lambda: keep_two_stage(boxes, cls, valid, thr)
+        if not torch.equal(keep, two_stage()):
+            raise AssertionError(f"nms_greedy B={b} K={k}: keep differs from "
+                                 f"kernel B + fixpoint")
+        ref = nms_greedy_ref(boxes, cls, valid, thr)
+        iou = skew_iou_green(boxes[:, :, None, :], boxes[:, None, :, :])
+        live = torch.ones((k, k), dtype=torch.bool, device=DEVICE).triu(1) \
+            & valid[:, :, None] & valid[:, None, :]
+        if cls is not None:
+            live &= cls[:, :, None] == cls[:, None, :]
+        band = ((iou - thr).abs() <= BAND) & live
+        clean = ~band.any(dim=(1, 2))
+        if not torch.equal(keep[clean], ref[clean]):
+            raise AssertionError(f"nms_greedy B={b} K={k}: keep differs from "
+                                 f"the plain version on an image with no "
+                                 f"pair within ±{BAND} of thr")
+        if special:
+            alt = torch.arange(k, device=DEVICE) % 2 == 0
+            if not torch.equal(keep[0], alt) or bool(keep[-1].any()):
+                raise AssertionError(f"nms_greedy B={b} K={k}: wrong keep on "
+                                     f"the chain or the all-invalid image")
+        n_kept = int(keep.sum())
+        if not 0 < n_kept < int(valid.sum()):
+            raise AssertionError(f"nms_greedy B={b} K={k}: nothing kept or "
+                                 f"nothing suppressed")
+        # 50 calls: one launch of ~0.06 ms is too short a window to time
+        ms = device_ms(torch, lambda: nms_greedy(boxes, cls, valid, thr),
+                       reps=50)
+        two_ms = device_ms(torch, two_stage)
+        plain = device_ms(torch, lambda: nms_greedy_ref(boxes, cls, valid,
+                                                         thr), reps=2)
+        call = time_ms(torch, lambda: nms_greedy(boxes, cls, valid, thr))
+        call_two = time_ms(torch, two_stage, reps=5, warmup=1)
+        tag = f"{n_cls} classes" if n_cls else "no-cls"
+        log(f"nms_greedy {tag} B={b} K={k} thr={thr}"
+            f"{' (chain + all-invalid)' if special else ''}: keep equal to "
+            f"kernel B + fixpoint; equal to the plain version on "
+            f"{int(clean.sum())} of {b} images ({int(band.sum())} live pairs "
+            f"within ±{BAND} of thr, {int((keep != ref).sum())} keep "
+            f"entries differ); {n_kept} kept of {int(valid.sum())} valid; "
+            f"device kernel C {ms:.4f} ms, kernel B + fixpoint {two_ms:.4f} "
+            f"ms, plain {plain:.4f} ms; per call C {call:.4f} ms, B + "
+            f"fixpoint {call_two:.4f} ms [{card}]")
+        if (b, k, special) == (1, 1024, False):
+            results["nms_greedy"] = {"ms": ms, "plain_ms": plain,
+                                     "max_abs_err": float(
+                                         (keep[clean].float()
+                                          - ref[clean].float()).abs().max())}
+
+
+def _dota_scene(seed: int = 6):
+    """A seeded synthetic SCENE² RGB uint8 aerial scene: a noisy dark
+    ground with 4·(SCENE/100)² bright rotated rectangles (numpy only)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(20, 70, (SCENE, SCENE, 3), dtype=np.uint8)
+    r = 64
+    yy, xx = np.mgrid[-r:r, -r:r].astype(np.float32)
+    for _ in range(4 * (SCENE // 100) ** 2):
+        cx, cy = rng.integers(r, SCENE - r, 2)
+        w, h, th = rng.uniform(16, 120), rng.uniform(8, 48), \
+            rng.uniform(-np.pi, np.pi)
+        u = xx * np.cos(th) + yy * np.sin(th)
+        v = -xx * np.sin(th) + yy * np.cos(th)
+        inside = (np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)
+        img[cy - r:cy + r, cx - r:cx + r][inside] = rng.integers(150, 256, 3)
+    return img
+
+
+def phase_dota(torch, card, results) -> None:
+    import numpy as np
+
+    from rotate_yolov3_tpu_torch.data.dota.device_tiles import \
+        DeviceTilePipeline
+    from rotate_yolov3_tpu_torch.data.letterbox import letterbox_torch
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import (nms_greedy,
+                                                        nms_greedy_ref)
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import keep_two_stage
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_kill_matrix
+
+    scene = _dota_scene()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            det = Detector(DOTA_CFG, img_size=NET_IMG, conf_thres=CONF,
+                           max_det=512, approx_top_k=False,
+                           compute_dtype=dtype, seed=0, device=DEVICE)
+            pipe = DeviceTilePipeline(det, subsize=1024, gap=200,
+                                      merge_nms_thres=MERGE_THR,
+                                      max_merged=1024)
+            t = pipe.num_tiles(SCENE, SCENE)
+            m = min(1024, t * det.max_det)
+            # the path: counters from 0, through the entry point only
+            gather_rows.launches = 0
+            skew_kill_matrix.launches = 0
+            nms_greedy.launches = 0
+            dets, mask = pipe(scene)
+            launches = {"gather_rows": gather_rows.launches,
+                        "skew_kill": skew_kill_matrix.launches,
+                        "nms_greedy": nms_greedy.launches}
+            if min(launches.values()) < 1:
+                raise AssertionError(f"dota {name}: a kernel of the path did "
+                                     f"not launch: {launches}")
+            if dtype == torch.bfloat16:
+                results["nms_greedy"]["launches"] = launches["nms_greedy"]
+            kept = dets[mask]
+            if dets.shape != (1024, 7) or mask.shape != (1024,) or \
+                    not bool(torch.isfinite(torch.from_numpy(dets)).all()) \
+                    or dets[~mask].any() or len(kept) == 0 or \
+                    (kept[:, 5] < CONF).any() or (kept[:, 2:4] <= 0).any() \
+                    or (kept[1:, 5] > kept[:-1, 5]).any():
+                raise AssertionError(f"dota {name}: bad merged output")
+            if kept[:, :2].max() <= 1024:
+                raise AssertionError(f"dota {name}: detections were not "
+                                     f"moved to source coordinates")
+
+            # the same stages one by one, and the merge recomputed from the
+            # same per-tile detections through the plain kernel C
+            with torch.inference_mode():
+                bucket = pipe.upload(scene)
+                lb, ratio, pad, org = pipe.letterbox_tiles(bucket)
+                tile_dets, tile_mask = det(lb)
+                rows, valid, _ = pipe.select(tile_dets, tile_mask, ratio,
+                                             pad, org)
+                out_k, keep_k = pipe.merge_nms(rows, valid)
+                out_r, keep_r = pipe.merge_nms(rows, valid,
+                                               keep_fn=nms_greedy_ref)
+                out_b, keep_b = pipe.merge_nms(
+                    rows, valid, keep_fn=keep_two_stage)
+            if not (torch.equal(keep_k, keep_b) and torch.equal(out_k,
+                                                                out_b)):
+                raise AssertionError(f"dota {name}: merge through kernel C "
+                                     f"differs from kernel B + fixpoint")
+            if not (torch.equal(keep_k, keep_r) and torch.equal(out_k,
+                                                                out_r)):
+                raise AssertionError(f"dota {name}: merge through kernel C "
+                                     f"differs from the plain recompute")
+            if not (np.array_equal(keep_k.cpu().numpy(), mask) and
+                    np.array_equal(out_k.cpu().numpy(), dets)):
+                raise AssertionError(f"dota {name}: pipe(img) differs from "
+                                     f"its stages run one by one")
+            n_valid = int(valid.sum())
+            log(f"dota {name} {SCENE}x{SCENE} -> {t} tiles @"
+                f"{det.img_size}, max_det 512, merge K={m}: launches "
+                f"{launches}; {len(kept)} merged detections of {n_valid} "
+                f"valid candidates; checksum "
+                f"{float(dets.astype(np.float64).sum()):.6f}; merge equal to the "
+                f"plain kernel C and to kernel B + fixpoint [{card}]")
+            if dtype == torch.float32:
+                tiles = torch.stack([
+                    bucket.cpu()[y:y + 1024, x:x + 1024]
+                    for x, y in org.cpu().to(torch.int64).tolist()])
+                lb_cpu = letterbox_torch(tiles.float(), det.img_size)[0]
+                err = float((lb.cpu() - lb_cpu).abs().max())
+                if err > 1e-3:
+                    raise AssertionError(f"dota f32: card letterbox differs "
+                                         f"from the CPU by {err}")
+                log(f"dota f32: card letterbox within {err:.3g} of the CPU "
+                    f"[{card}]")
+
+            # timing: the whole call (host clock, result on the host), its
+            # stages (CUDA events), the merge through C vs B + fixpoint
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                pipe(scene)
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pipe(scene)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            scene_ms = statistics.median(walls)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy = device_ms(torch, lambda: pipe(scene), reps=3)
+            with torch.inference_mode():
+                stages = {
+                    "upload": lambda: pipe.upload(scene),
+                    "tiles+letterbox": lambda: pipe.letterbox_tiles(bucket),
+                    "detection": lambda: det(lb),
+                    "re-map+top-k": lambda: pipe.select(
+                        tile_dets, tile_mask, ratio, pad, org),
+                    "merge NMS": lambda: pipe.merge_nms(rows, valid),
+                }
+                split = {key: time_ms(torch, f, reps=5, warmup=1)
+                         for key, f in stages.items()}
+                c_ms = device_ms(torch, lambda: pipe.merge_nms(rows, valid))
+                b_ms = device_ms(torch, lambda: pipe.merge_nms(
+                    rows, valid, keep_fn=keep_two_stage))
+                b_call = time_ms(torch, lambda: pipe.merge_nms(
+                    rows, valid, keep_fn=keep_two_stage), reps=5,
+                    warmup=1)
+            log(f"dota {name} scene: {scene_ms:.3f} ms (median of 5 after 2 "
+                f"warm-ups, host clock, source on the host to merged numpy "
+                f"rows), {t / scene_ms * 1e3:.2f} tiles/s, device busy "
+                f"{busy:.3f} ms = {100 * busy / scene_ms:.1f}% of the call, "
+                f"peak {peak:.2f} GiB; stages (ms): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"; merge NMS device time through C {c_ms:.4f} ms, through"
+                f" B + fixpoint {b_ms:.4f} ms (per call {split['merge NMS']:.3f}"
+                f" vs {b_call:.3f} ms) [{card}]")
+            if dtype == torch.bfloat16:
+                log(f"top kernels of one bf16 scene call (device time): "
+                    + top_kernels(torch, lambda: pipe(scene), n=10)
+                    + f" [{card}]")
+            del det, pipe, lb, tile_dets, tile_mask, rows, valid
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def phase_fused_serving(torch, card) -> None:
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import (
+        decode_candidates, keep_two_stage, non_max_suppression_fused,
+        select_candidates)
+
+    max_det = 512
+    det = Detector(CFG, img_size=NET_IMG, conf_thres=CONF, nms_thres=THR,
+                   max_det=max_det, compute_dtype=torch.bfloat16, seed=0,
+                   device=DEVICE)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randint(0, 256, (B_BENCH, det.img_size, det.img_size, 3),
+                      generator=gen, dtype=torch.uint8).to(DEVICE)
+    specs, fm = det.spec.yolo_specs, det.field_major_heads
+    heads = det.heads(x)
+    kw = dict(conf_thres=CONF, nms_thres=THR, max_det=max_det,
+              approx_top_k=det.approx_top_k, field_major=fm)
+    base = non_max_suppression_fused(heads, specs, **kw)
+    nms_greedy.launches = 0
+    fused = non_max_suppression_fused(heads, specs, fused_greedy=True, **kw)
+    torch.cuda.synchronize()
+    if nms_greedy.launches != 1:
+        raise AssertionError(f"fused_greedy: kernel C launched "
+                             f"{nms_greedy.launches} times, not once")
+    if not (torch.equal(fused[1], base[1]) and torch.equal(fused[0],
+                                                           base[0])):
+        raise AssertionError("fused_greedy: detections or keep differ from "
+                             "the two-stage default")
+    full_f = time_ms(torch, lambda: non_max_suppression_fused(
+        heads, specs, fused_greedy=True, **kw), reps=5, warmup=1)
+    full_b = time_ms(torch, lambda: non_max_suppression_fused(
+        heads, specs, **kw), reps=5, warmup=1)
+    scores, idx, valid = select_candidates(heads, specs, CONF, max_det,
+                                           det.approx_top_k, fm)
+    boxes, _ = decode_candidates(heads, specs, idx, valid, fm)
+    two_stage = lambda: keep_two_stage(boxes, None, valid, THR)
+    c_ms = device_ms(torch, lambda: nms_greedy(boxes, None, valid, THR))
+    b_ms = device_ms(torch, two_stage)
+    c_call = time_ms(torch, lambda: nms_greedy(boxes, None, valid, THR))
+    b_call = time_ms(torch, two_stage, reps=5, warmup=1)
+    log(f"fused_greedy bf16 B={B_BENCH} max_det={max_det} @{det.img_size}: "
+        f"detections "
+        f"and keep equal to the default ({int(base[1].sum())} kept); NMS "
+        f"tail per call {full_f:.3f} ms fused vs {full_b:.3f} ms two-stage; "
+        f"device kernel C {c_ms:.4f} ms vs kernel B + fixpoint {b_ms:.4f} "
+        f"ms; per call C {c_call:.4f} ms vs B + fixpoint {b_call:.4f} ms "
+        f"[{card}]")
+    del det, x, heads
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -447,6 +791,9 @@ def main() -> int:
     phase_kill(torch, card, results)
     phase_slice(torch, card, results)
     phase_bench(torch, card)
+    phase_nms_greedy(torch, card, results)
+    phase_dota(torch, card, results)
+    phase_fused_serving(torch, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,8 +9,10 @@ wrapper runs its plain PyTorch version instead.
 
 Ported so far: the serving path of ``Detector`` (cfg and ``.weights``
 loading, the BN-folded Darknet, score-first top-k, gathered decode with the
-row-gather kernel, rotated NMS with the skew-IoU kill-mask kernel), and
-``python -m rotate_yolov3_tpu_torch.detect``.
+row-gather kernel, rotated NMS with the skew-IoU kill-mask kernel or the
+fused greedy-NMS kernel), ``python -m rotate_yolov3_tpu_torch.detect``, and
+the DOTA tool chain with its on-device tile pipeline, ``python -m
+rotate_yolov3_tpu_torch.dota``.
 """
 
 __version__ = "0.1.0"

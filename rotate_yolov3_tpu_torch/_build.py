@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports a plain C launch function. ``nvcc`` compiles
 it for Hopper (``sm_90a``) into its own shared library, which is loaded with
 ``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
 Libraries go to ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Nothing here runs at import time: the
+named by a hash of the source, of every header in ``csrc/`` and of the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing here runs at import time: the
 package imports, and its CPU paths run, on a machine without ``nvcc``.
 """
 
@@ -27,8 +28,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-file flags: the skew-IoU arithmetic must not be contracted into FMAs
-# (see the note at the top of csrc/skew_kill.cu)
-EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"skew_kill": ("-fmad=false",)}
+# (see the note at the top of csrc/skew_green.cuh)
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"skew_kill": ("-fmad=false",),
+                                           "nms_greedy": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (build seconds, nvcc/ptxas report) for libraries built in this
@@ -50,6 +52,22 @@ def nvcc() -> str:
         "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc flags of ``csrc/<name>.cu``: the common ones and its own."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash naming the library of ``<csrc>/<name>.cu``: the source, every
+    ``*.cuh`` header of ``csrc`` (any of them may be included) and the
+    flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(flags(name)).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library of ``csrc/<name>.cu``, building it first if
     no library for this source and these flags exists yet."""
@@ -57,15 +75,14 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"lib{name}-{digest}.so"
+    key = digest(name)
+    path = BUILD_DIR / f"lib{name}-{key}.so"
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
+        tmp = BUILD_DIR / f".lib{name}-{key}.{os.getpid()}.so"
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(src)],
+        proc = subprocess.run([nvcc(), *flags(name), "-I", str(CSRC),
+                               "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

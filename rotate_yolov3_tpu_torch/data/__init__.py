@@ -1,1 +1,1 @@
-"""Letterbox and inference input iterators."""
+"""Letterbox, inference input iterators and the DOTA tool chain."""

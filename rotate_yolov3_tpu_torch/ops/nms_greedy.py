@@ -1,0 +1,131 @@
+"""Fused greedy rotated NMS, boxes -> keep mask in one launch: kernel C.
+
+Counterpart of ``rotate_yolov3_tpu/ops/nms_pallas.py::nms_greedy_pallas``:
+(B, K, 5) f32 score-descending boxes, optional (B, K) int32 class ids and
+the (B, K) validity mask give the (B, K) greedy keep mask. It equals the
+kill mask of kernel B (``ops.skew_iou_cuda.skew_kill_matrix``) followed by
+``ops.rotated_nms.greedy_suppress_fixpoint_kill``: the same pair predicate,
+and a greedy walk that reaches the fixpoint's unique solution.
+
+``nms_greedy`` launches the hand-written CUDA kernel (``csrc/nms_greedy.cu``)
+on a CUDA tensor and uses the plain version, ``nms_greedy_ref``, only for a
+tensor on the CPU. K is capped at 1024 (``nms_greedy_fused_ok``), as in the
+reference; a larger K takes the two-stage path. The reference's other pair
+algos (``"green2"``, ``"candidates"``) are not ported yet, and its TPU
+tiling arguments (``block_n``, ``block_m``, ``interpret``) have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .skew_iou_cuda import skew_kill_matrix_ref
+
+# words of 32 kill bits per row fit the 32 lanes of the kernel's greedy warp
+_MAX_K = 1024
+_MASK_DTYPES = ("float32", "bfloat16")
+
+
+def nms_greedy_fused_ok(k: int) -> bool:
+    """Shape gate of the fused path: K <= 1024, as in the reference."""
+    return k <= _MAX_K
+
+
+def _check(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
+           valid: torch.Tensor, algo: str, mask_dtype: str) -> None:
+    if algo != "green":
+        raise NotImplementedError(
+            f"nms_greedy(algo={algo!r}): only the 'green' intersection is "
+            f"ported (ROADMAP, TPU kernels to port: skew_kill_matrix_pallas "
+            f"green2/candidates algos)")
+    if mask_dtype not in _MASK_DTYPES:
+        raise ValueError(f"nms_greedy: mask_dtype must be one of "
+                         f"{_MASK_DTYPES}, got {mask_dtype!r}")
+    if boxes.ndim != 3 or boxes.shape[-1] != 5:
+        raise ValueError(f"nms_greedy: boxes must be (B, K, 5), got "
+                         f"{tuple(boxes.shape)}")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"nms_greedy: boxes must be float32, got "
+                        f"{boxes.dtype}")
+    if not nms_greedy_fused_ok(boxes.shape[1]):
+        raise ValueError(f"nms_greedy: K = {boxes.shape[1]} exceeds the "
+                         f"fused kernel's {_MAX_K}; use the two-stage path")
+    if tuple(valid.shape) != tuple(boxes.shape[:2]) or \
+            valid.dtype != torch.bool:
+        raise ValueError(f"nms_greedy: valid must be (B, K) bool, got "
+                         f"{tuple(valid.shape)} {valid.dtype}")
+    if cls_id is not None and (tuple(cls_id.shape) != tuple(boxes.shape[:2])
+                               or cls_id.dtype != torch.int32):
+        raise ValueError(f"nms_greedy: cls_id must be (B, K) int32, got "
+                         f"{tuple(cls_id.shape)} {cls_id.dtype}")
+
+
+def nms_greedy_ref(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
+                   valid: torch.Tensor, iou_thr: float = 0.4) -> torch.Tensor:
+    """Plain PyTorch version: the plain kill mask, then the greedy
+    fixpoint."""
+    from .rotated_nms import greedy_suppress_fixpoint_kill
+
+    kill = skew_kill_matrix_ref(boxes, cls_id, iou_thr)
+    return greedy_suppress_fixpoint_kill(kill, valid)
+
+
+def _launcher():
+    fn = _build.load("nms_greedy").nms_greedy_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
+               valid: torch.Tensor, iou_thr: float = 0.4,
+               algo: str = "green", mask_dtype: str = "float32"
+               ) -> torch.Tensor:
+    """Batched fused greedy rotated NMS: (B, K, 5) boxes -> (B, K) keep.
+
+    Rows must be score-descending per image. ``cls_id`` enables class-aware
+    suppression; rows that are not ``valid`` never keep nor kill.
+    ``mask_dtype`` is the reference's choice of kill-scratch type (f32 or
+    bf16, same keep in both); the kernel packs the mask into bits, so both
+    give the same keep here too and the argument only gets checked.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    or raises.
+    """
+    _check(boxes, cls_id, valid, algo, mask_dtype)
+    tensors = [boxes, valid] + ([] if cls_id is None else [cls_id])
+    if all(t.device.type == "cpu" for t in tensors):
+        return nms_greedy_ref(boxes, cls_id, valid, iou_thr)
+    if boxes.device.type != "cuda" or any(t.device != boxes.device
+                                          for t in tensors):
+        raise ValueError("nms_greedy: boxes, cls_id and valid must lie on "
+                         "one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("nms_greedy: inputs must be contiguous")
+    b, k = boxes.shape[:2]
+    nw = -(-k // 32)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    if keep.numel() == 0:
+        return keep
+    mask = torch.empty((b * k * nw,), dtype=torch.int32, device=boxes.device)
+    done = torch.empty((b,), dtype=torch.int32, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        err = _launcher()(
+            boxes.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
+            valid.data_ptr(), mask.data_ptr(), done.data_ptr(),
+            keep.data_ptr(), b, k, iou_thr, 1.0 + iou_thr,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nms_greedy kernel launch failed: CUDA error "
+                           f"{err}")
+    nms_greedy.launches += 1
+    return keep
+
+
+nms_greedy.launches = 0

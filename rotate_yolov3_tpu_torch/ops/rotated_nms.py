@@ -14,17 +14,21 @@ then the greedy fixpoint), batched over images instead of vmapped.
 Out come (B, max_det, 7) detections ``(cx, cy, w, h, theta, score, class)``
 sorted by score, zeroed where not kept, and the (B, max_det) keep mask.
 
-Not ported yet (ROADMAP queue 2): the single-kernel ``fused_greedy`` path
-(kernel C), the ``decode_kernel`` path (kernel D) and ``iou_matrix_fn``
-hooks (kernel E); asking for them raises ``NotImplementedError``.
+``fused_greedy=True`` replaces stages 4-5 with the single-kernel NMS
+(``ops.nms_greedy``, kernel C) wherever K <= 1024, as the reference does.
+Not ported yet (ROADMAP queue 2): the ``decode_kernel`` path (kernel D) and
+``iou_matrix_fn`` hooks (kernel E); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from .nms_greedy import nms_greedy, nms_greedy_fused_ok
 from .skew_iou_cuda import skew_kill_matrix
 from .topk import select_topk
 
@@ -115,15 +119,23 @@ def decode_candidates(head_raws: Sequence[torch.Tensor], yolo_specs,
     return boxes.contiguous(), cls_id
 
 
+def keep_two_stage(boxes, cls_id, valid, iou_thr: float) -> torch.Tensor:
+    """Stages 4-5: the kill mask of kernel B, then the greedy fixpoint.
+    (B, K, 5) boxes, optional (B, K) int32 class ids, (B, K) valid ->
+    (B, K) keep."""
+    return greedy_suppress_fixpoint_kill(
+        skew_kill_matrix(boxes, cls_id, iou_thr=iou_thr), valid)
+
+
 def nms_from_candidates(boxes, top_scores, cls_id, valid, nms_thres: float,
                         use_cls: bool, max_det: int,
-                        kill_fn: Callable = skew_kill_matrix
+                        keep_fn: Callable = keep_two_stage
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stages 4-5 and the output rows. ``kill_fn`` builds the kill mask:
-    the kernel wrapper on the serving path, its plain version when a check
-    recomputes the keep mask."""
-    kill = kill_fn(boxes, cls_id if use_cls else None, iou_thr=nms_thres)
-    keep = greedy_suppress_fixpoint_kill(kill, valid)
+    """Stages 4-5 and the output rows. ``keep_fn`` (boxes, cls_id, valid,
+    iou_thr) -> keep: kernel B + fixpoint by default, the fused kernel C's
+    wrapper, or a plain version when a check recomputes the keep mask."""
+    keep = keep_fn(boxes, cls_id if use_cls else None, valid,
+                   iou_thr=nms_thres)
     out = torch.cat([boxes, top_scores[..., None].to(boxes.dtype),
                      cls_id[..., None].to(boxes.dtype)], dim=-1)
     out = torch.where(keep[..., None], out, out.new_zeros(()))
@@ -141,18 +153,23 @@ def non_max_suppression_fused(head_raws, yolo_specs, conf_thres: float = 0.1,
                               field_major: bool = False,
                               iou_algo: str = "green",
                               fused_greedy: bool = False,
-                              decode_kernel: Optional[bool] = None
+                              decode_kernel: Optional[bool] = None,
+                              mask_dtype: str = "float32"
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score-first NMS straight from raw (B, H, W, na·no) head maps: the
     product path. Returns (B, max_det, 7) detections and the (B, max_det)
-    keep mask."""
+    keep mask.
+
+    ``fused_greedy``: the kill mask and the greedy pass in one kernel
+    (``ops.nms_greedy``, kernel C) when K <= 1024, else the two-stage path;
+    the same keep decisions either way. ``mask_dtype`` is the reference's
+    kill-scratch type for that kernel (``"float32"`` or ``"bfloat16"``);
+    kernel C packs the mask into bits, so both give the same keep."""
     if iou_matrix_fn is not None:
         _unsupported("iou_matrix_fn", "skew_iou_matrix_pallas (kernel E)")
     if iou_algo != "green":
         _unsupported(f"iou_algo={iou_algo!r}",
                      "skew_kill_matrix_pallas green2/candidates algos")
-    if fused_greedy:
-        _unsupported("fused_greedy=True", "nms_greedy_pallas (kernel C)")
     if decode_kernel:
         _unsupported("decode_kernel=True", "decode_rows_pallas (kernel D)")
     top_scores, top_idx, valid = select_candidates(
@@ -160,5 +177,9 @@ def non_max_suppression_fused(head_raws, yolo_specs, conf_thres: float = 0.1,
         field_major)
     boxes, cls_id = decode_candidates(head_raws, yolo_specs, top_idx, valid,
                                       field_major)
+    fused = fused_greedy and nms_greedy_fused_ok(boxes.shape[1])
+    keep_fn = (functools.partial(nms_greedy, mask_dtype=mask_dtype)
+               if fused else keep_two_stage)
     return nms_from_candidates(boxes, top_scores, cls_id, valid, nms_thres,
-                               yolo_specs[0].num_classes > 1, max_det)
+                               yolo_specs[0].num_classes > 1, max_det,
+                               keep_fn=keep_fn)

@@ -358,16 +358,38 @@ def test_unported_options_raise():
     class _Spec:
         na, no, num_classes = 18, 7, 1
 
-    for kw in ({"fused_greedy": True}, {"decode_kernel": True},
-               {"iou_algo": "green2"}, {"iou_matrix_fn": lambda a, b: a}):
+    for kw in ({"decode_kernel": True}, {"iou_algo": "green2"},
+               {"iou_matrix_fn": lambda a, b: a}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             non_max_suppression_fused(heads, [_Spec()], **kw)
+
+
+def test_nms_greedy_refuses_unported_algo_and_large_k():
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import (nms_greedy,
+                                                        nms_greedy_fused_ok)
+
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nms_greedy(torch.zeros(1, 8, 5), None, valid, algo="green2")
+    assert nms_greedy_fused_ok(1024) and not nms_greedy_fused_ok(1025)
+    with pytest.raises(ValueError, match="1024"):
+        nms_greedy(torch.zeros(1, 1025, 5), None,
+                   torch.ones(1, 1025, dtype=torch.bool))
+    with pytest.raises(ValueError, match="mask_dtype"):
+        nms_greedy(torch.zeros(1, 8, 5), None, valid, mask_dtype="int8")
+    with pytest.raises(ValueError, match="valid"):
+        nms_greedy(torch.zeros(1, 8, 5), None, valid.int())
 
 
 def test_import_hygiene():
     """The port imports neither jax, nor triton, nor the JAX package."""
     code = ("import sys, rotate_yolov3_tpu_torch, "
-            "rotate_yolov3_tpu_torch.detector, rotate_yolov3_tpu_torch.detect;"
+            "rotate_yolov3_tpu_torch.detector, rotate_yolov3_tpu_torch.detect,"
+            " rotate_yolov3_tpu_torch.dota, "
+            "rotate_yolov3_tpu_torch.data.dota.device_tiles, "
+            "rotate_yolov3_tpu_torch.data.dota.evaluation, "
+            "rotate_yolov3_tpu_torch.data.dota.result_merge, "
+            "rotate_yolov3_tpu_torch.ops.nms_greedy;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'rotate_yolov3_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
