@@ -29,11 +29,14 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
   7. the DOTA slice: ``DeviceTilePipeline`` over ``Detector(
      "cfg/yolov3-rotate-dota.cfg")`` at 608² (25 tiles of a seeded
      synthetic 4000² scene, a K = 1024 merge) in bf16 and in f32 (TF32
-     off): kernels A, B and C must launch through ``pipe(img)`` alone, the
-     merged output must equal the merge recomputed through the plain
-     kernel C from the same per-tile detections, the f32 card letterbox
-     must agree with the CPU one; scene ms, tiles/s, the stage split and
-     peak memory;
+     off): kernels A, B and C must launch through ``pipe(img)`` alone;
+     kernels A and B are held against their plain versions at the tile
+     stage's shapes (T = 25, 7581 cells of 378 lanes, K = 512, 15
+     classes) on the path's own heads and boxes, and the per-tile keep
+     against the plain recompute; the merged output must equal the merge
+     recomputed through the plain kernel C from the same per-tile
+     detections; the f32 card letterbox must agree with the CPU one within
+     ``LB_TOL``; scene ms, tiles/s, the stage split and peak memory;
   8. ``fused_greedy=True`` on the HRSC serving heads at B = 128, max_det
      512: the same detections and keep as the default two-stage path, and
      kernel C's time beside kernel B + fixpoint.
@@ -65,6 +68,10 @@ BAND = 1e-4          # kill pairs this close to THR may round either way
 SCENE = 4000         # side of the synthetic DOTA scene: 25 tiles of 1024
 NET_IMG = None       # net input of phases 7-8 (None: the cfg's, 608)
 MERGE_THR = 0.3      # cross-tile merge NMS threshold (dota.py default)
+# f32 letterbox, card against CPU, on 0-255 values: the two antialiased
+# bilinear interpolates round differently (6.36e-3 apart at 1024 -> 608 on
+# an H100); a wrong tap or weight moves pixels by whole units
+LB_TOL = 1e-2
 
 KERNELS = {
     "gather_rows": ("rotate_yolov3_tpu_torch/csrc/gather_rows.cu",
@@ -574,6 +581,77 @@ def _dota_scene(seed: int = 6):
     return img
 
 
+def _tiles_vs_plain(torch, card, name, det, lb, tile_dets, tile_mask):
+    """The DOTA path's per-tile stage recomputed from the same heads:
+    kernel A against ``torch.gather`` on the path's (T, cells, na·no) maps
+    and rows (bit for bit), kernel B against its plain version on the path's
+    boxes and classes (every pair outside the band), and the per-tile keep
+    and detections through the plain versions (every tile whose kill masks
+    agree). Returns the worst |kernel - plain| of A and of B."""
+    from rotate_yolov3_tpu_torch.ops.gather_rows import (gather_rows,
+                                                         gather_rows_ref)
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy_ref
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import (decode_candidates,
+                                                         nms_from_candidates,
+                                                         select_candidates)
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import (
+        skew_kill_matrix, skew_kill_matrix_ref)
+    from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
+
+    specs, fm = det.spec.yolo_specs, det.field_major_heads
+    use_cls, thr = specs[0].num_classes > 1, det.nms_thres
+    heads = det.heads(lb)
+    scores, idx, valid = select_candidates(heads, specs, det.conf_thres,
+                                           det.max_det, det.approx_top_k, fm)
+    # kernel A: the cell rows decode_gathered gathers
+    na, no = specs[0].na, specs[0].no
+    cells = torch.cat([h.reshape(h.shape[0], -1, na * no) for h in heads],
+                      dim=1).contiguous()
+    cell_idx = torch.div(idx, na, rounding_mode="floor").contiguous()
+    got, ref = gather_rows(cells, cell_idx), gather_rows_ref(cells, cell_idx)
+    bits = torch.int16 if cells.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(bits), ref.view(bits)):
+        raise AssertionError(f"dota {name}: gather_rows at the tile shapes "
+                             f"differs from torch.gather")
+    # kernel B: the class-aware kill mask of the decoded boxes
+    boxes, cls = decode_candidates(heads, specs, idx, valid, fm)
+    cls_arg = cls if use_cls else None
+    kill_k = skew_kill_matrix(boxes, cls_arg, thr)
+    kill_r = skew_kill_matrix_ref(boxes, cls_arg, thr)
+    iou = skew_iou_green(boxes[:, :, None, :], boxes[:, None, :, :])
+    far = (iou - thr).abs() > BAND
+    if bool(((kill_k != kill_r) & far).any()):
+        raise AssertionError(f"dota {name}: skew_kill at the tile shapes "
+                             f"differs from the plain version outside the "
+                             f"band")
+    # keep and detections: the staged kernels equal det(lb), and the plain
+    # versions equal them on every tile whose kill masks agree
+    out_k, keep_k = nms_from_candidates(boxes, scores, cls, valid, thr,
+                                        use_cls, det.max_det)
+    if not (torch.equal(keep_k, tile_mask) and torch.equal(out_k,
+                                                           tile_dets)):
+        raise AssertionError(f"dota {name}: det(tiles) differs from its "
+                             f"stages run one by one")
+    out_r, keep_r = nms_from_candidates(boxes, scores, cls, valid, thr,
+                                        use_cls, det.max_det,
+                                        keep_fn=nms_greedy_ref)
+    same = (kill_k == kill_r).flatten(1).all(dim=1)
+    if not (torch.equal(keep_r[same], keep_k[same]) and
+            torch.equal(out_r[same], out_k[same])):
+        raise AssertionError(f"dota {name}: per-tile keep differs from the "
+                             f"plain recompute")
+    log(f"dota {name} tile stage, T={cells.shape[0]} cells={cells.shape[1]} "
+        f"C={cells.shape[2]} K={idx.shape[1]}, "
+        f"{'class-aware' if use_cls else 'no-cls'} thr={thr}: kernel A "
+        f"bit-equal to torch.gather; kernel B equal to "
+        f"its plain version on {int(far.sum())} pairs "
+        f"({int((kill_k != kill_r).sum())} differ within ±{BAND}); keep and "
+        f"detections equal to the plain recompute on {int(same.sum())} of "
+        f"{same.numel()} tiles, {int(keep_k.sum())} kept [{card}]")
+    return (float((got.float() - ref.float()).abs().max()),
+            float((kill_k.float() - kill_r.float())[far].abs().max()))
+
+
 def phase_dota(torch, card, results) -> None:
     import numpy as np
 
@@ -628,12 +706,18 @@ def phase_dota(torch, card, results) -> None:
                 raise AssertionError(f"dota {name}: detections were not "
                                      f"moved to source coordinates")
 
-            # the same stages one by one, and the merge recomputed from the
-            # same per-tile detections through the plain kernel C
+            # the same stages one by one: the tile stage recomputed through
+            # the plain versions of kernels A and B, the merge from the same
+            # per-tile detections through the plain kernel C
             with torch.inference_mode():
                 bucket = pipe.upload(scene)
                 lb, ratio, pad, org = pipe.letterbox_tiles(bucket)
                 tile_dets, tile_mask = det(lb)
+                errs = _tiles_vs_plain(torch, card, name, det, lb, tile_dets,
+                                       tile_mask)
+                for key, err in zip(("gather_rows", "skew_kill"), errs):
+                    results[key]["max_abs_err"] = max(
+                        results[key]["max_abs_err"], err)
                 rows, valid, _ = pipe.select(tile_dets, tile_mask, ratio,
                                              pad, org)
                 out_k, keep_k = pipe.merge_nms(rows, valid)
@@ -666,11 +750,11 @@ def phase_dota(torch, card, results) -> None:
                     for x, y in org.cpu().to(torch.int64).tolist()])
                 lb_cpu = letterbox_torch(tiles.float(), det.img_size)[0]
                 err = float((lb.cpu() - lb_cpu).abs().max())
-                if err > 1e-3:
+                if err > LB_TOL:
                     raise AssertionError(f"dota f32: card letterbox differs "
                                          f"from the CPU by {err}")
                 log(f"dota f32: card letterbox within {err:.3g} of the CPU "
-                    f"[{card}]")
+                    f"(limit {LB_TOL}) [{card}]")
 
             # timing: the whole call (host clock, result on the host), its
             # stages (CUDA events), the merge through C vs B + fixpoint

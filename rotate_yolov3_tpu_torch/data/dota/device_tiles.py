@@ -12,7 +12,8 @@ detector's device:
      (``img_split.tile_origins``), so the T tiles are static slices;
   2. **letterbox**: ``data.letterbox.letterbox_torch`` resizes the (T,
      subsize, subsize, 3) tile batch to the net input size (ratio and pad
-     are Python numbers; the resize runs as f32 matrix products);
+     are Python numbers; the resize is PyTorch's antialiased bilinear
+     ``interpolate``, the resize of ``jax.image.resize``);
   3. **detection**: one ``Detector.__call__`` over the tile batch;
   4. **re-map**: inverse letterbox (``ops.boxes.scale_coords_rotated``),
      then the tile origins;

@@ -40,97 +40,39 @@ def letterbox(img: np.ndarray, new_shape: int = 608,
     return img, ratio, (left, top)
 
 
-def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) f32 weights of ``jax.image.resize(method="linear")`` along
-    one axis: the triangle kernel, widened by the scale when downsampling
-    (antialias), normalised per output, zero where the sample falls outside
-    the input; computed in f32 as the reference computes it."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (out_size / in_size))
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale \
-        - f32(0.5)
-    x = np.abs(sample[:, None] - np.arange(in_size, dtype=f32)[None, :]) \
-        / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - x)
-    total = w.sum(axis=1, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return np.where(inside[:, None], w, f32(0.0)).astype(f32)
-
-
-def _resize_taps(in_size: int, out_size: int
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """The banded ``_resize_weights`` as taps: (out, n) input indices and
-    (out, n) f32 weights, n the widest band (4 at 1024 -> 608); padding
-    taps repeat the last index with weight 0."""
-    w = _resize_weights(in_size, out_size)
-    nz = w != 0
-    lo = nz.argmax(axis=1)
-    hi = in_size - 1 - nz[:, ::-1].argmax(axis=1)
-    n = int((hi - lo).max()) + 1
-    idx = lo[:, None] + np.arange(n)[None, :]
-    live = idx <= hi[:, None]
-    idx = np.minimum(idx, in_size - 1)
-    taps = np.where(live, np.take_along_axis(w, idx, axis=1), np.float32(0))
-    return idx, taps.astype(np.float32)
-
-
-def _resize_axis(x, axis: int, out_size: int):
-    """Resize (B, H, W, C) ``x`` along ``axis`` (1 or 2) with the taps of
-    ``_resize_taps``, summed in tap order by separate elementwise ops: the
-    same bits on any device."""
-    import torch
-
-    idx, taps = _resize_taps(x.shape[axis], out_size)
-    idx = torch.from_numpy(idx).to(x.device)
-    taps = torch.from_numpy(taps).to(x.device)
-    shape = [1, 1, 1, 1]
-    shape[axis] = out_size
-    out = None
-    for t in range(idx.shape[1]):
-        term = x.index_select(axis, idx[:, t]) * taps[:, t].reshape(shape)
-        out = term if out is None else out + term
-    return out
-
-
 def letterbox_torch(img, new_shape: int = 608):
     """On-device letterbox for fixed-shape batched images.
 
     Args:
-      img: (B, H, W, C) float32 tensor (any range), or uint8, on any
-        device. uint8 gives the values of ``img.float()`` without the
-        float copy of the input: each tap promotes as it is weighted.
+      img: (B, H, W, C) float32 tensor (any range), or uint8 (taken as
+        ``img.float()``), on any device.
       new_shape: target square size.
     Returns:
       (B, new_shape, new_shape, C) float tensor, ratio (python float) and
       (pad_x, pad_y) (python ints), known from the static input shape.
 
     The resize is the one ``letterbox_jax`` runs, ``jax.image.resize(
-    method="linear")``, with its weights (``_resize_weights``): it
-    antialiases when it downsamples (a plain bilinear resize of a 1024 ->
-    608 tile differs by up to 162 of 255). The weights are banded, so each
-    axis is a few gathered taps summed in a fixed order: the card and the
-    CPU give the same values (PyTorch's antialiased bilinear
-    ``interpolate`` differs between the two by ~6e-3), and the cost is a
-    few memory-bound passes, not a dense product.
+    method="linear")``: bilinear with antialiasing when it downsamples (a
+    plain bilinear resize of a 1024 -> 608 tile differs by up to 162 of
+    255). PyTorch's ``interpolate(mode="bilinear", antialias=True)`` is
+    that resize; the card's and the CPU's implementations round
+    differently, by a few 1e-3 on 0-255 values.
     """
     import torch
+    import torch.nn.functional as F
 
     b, h, w, c = img.shape
     ratio = min(new_shape / h, new_shape / w)
     new_w, new_h = int(round(w * ratio)), int(round(h * ratio))
-    resized = img
-    if new_h != h:
-        resized = _resize_axis(resized, 1, new_h)
-    if new_w != w:
-        resized = _resize_axis(resized, 2, new_w)
+    resized = img if img.is_floating_point() else img.float()
+    if (new_h, new_w) != (h, w):
+        resized = F.interpolate(resized.permute(0, 3, 1, 2), (new_h, new_w),
+                                mode="bilinear", align_corners=False,
+                                antialias=True).permute(0, 2, 3, 1)
     pad_y = (new_shape - new_h) / 2
     pad_x = (new_shape - new_w) / 2
     top, left = int(round(pad_y - 0.1)), int(round(pad_x - 0.1))
-    dtype = img.dtype if img.is_floating_point() else torch.float32
     out = torch.full((b, new_shape, new_shape, c), float(_PAD_VALUE),
-                     dtype=dtype, device=img.device)
+                     dtype=resized.dtype, device=img.device)
     out[:, top:top + new_h, left:left + new_w] = resized
     return out, ratio, (left, top)
