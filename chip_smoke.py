@@ -39,7 +39,32 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      ``LB_TOL``; scene ms, tiles/s, the stage split and peak memory;
   8. ``fused_greedy=True`` on the HRSC serving heads at B = 128, max_det
      512: the same detections and keep as the default two-stage path, and
-     kernel C's time beside kernel B + fixpoint.
+     kernel C's time beside kernel B + fixpoint;
+  9. the IoU matrix (kernel E), each pair algo, triangle off and on, at
+     17 x 33, 512 x 512, the degenerate boxes and B = 8 images of 512
+     through the per-image hook: within ``IOU_TOL`` of its plain version
+     and ``ARGSORT_TOL`` of the argsort oracle; its time beside the plain
+     version's;
+ 10. the kill mask's other pair algos (kernel B': green2, candidates) at
+     B = 8, K = 512, with and without 15 classes, equal to the plain
+     version on every image without a pair within ``BAND`` of the
+     threshold, and on the degenerate boxes; kernel C's green2 bit for bit
+     kernel B green2 + fixpoint, and its "candidates" equal to "green";
+     times;
+ 11. the gather + decode kernel (kernel D) on HRSC heads (B = 8, K = 512,
+     bf16 and f32) and DOTA heads at the tile stage's shape (25 tiles,
+     7581 cells x 378 lanes, nc = 15), with head-boundary indices and tied
+     class logits: boxes within ``DECODE_RTOL``/``DECODE_ATOL`` of the
+     plain version, class ids equal, columns 6-7 zero; times beside the
+     plain version and kernel A + decode;
+ 12. the slice's options on the HRSC ``Detector`` at 608², B = 8, max_det
+     512, bf16 and f32 (TF32 off): ``iou_algo`` green2 and candidates,
+     ``iou_matrix_fn`` hooks through kernel E, ``non_max_suppression`` of
+     ``predict_raw`` with and without a hook, and ``decode_kernel=True``
+     with each ``iou_algo``, two-stage and fused. The kernels of each path
+     must launch; keep and detections must equal the stages through the
+     kernels, the plain versions and, in f32, the CPU path, on every image
+     without a band pair. Then each option's per-call time at B = 128.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -73,13 +98,36 @@ MERGE_THR = 0.3      # cross-tile merge NMS threshold (dota.py default)
 # an H100); a wrong tap or weight moves pixels by whole units
 LB_TOL = 1e-2
 
+# the degenerate boxes of tests/test_pallas.py:50-58: identical, parallel-edge
+# and axis-aligned overlaps, where a contracted FMA mints spurious
+# parallel-edge candidates
+DEGENERATE = ((50, 50, 20, 10, 0.8), (50, 50, 20, 10, 0.8),
+              (50, 50, 20, 10, 0.0), (55, 50, 20, 10, 0.0),
+              (50, 52, 20, 10, 0.0), (30, 30, 16, 8, 0.5),
+              (34, 33, 16, 8, 0.5))
+IOU_TOL = 1e-5       # kernel E against its plain version, on IoU
+ARGSORT_TOL = 2e-3   # any algo against the argsort oracle (tests/test_pallas)
+# kernel D against its plain version: transcendentals may round apart
+DECODE_RTOL, DECODE_ATOL = 1e-5, 1e-4
+
+# every kernel of the port, each pair algo of B, C and E its own entry:
+# name -> (source, the TPU kernel's pallas_call it replaces)
+_CSRC = "rotate_yolov3_tpu_torch/csrc/"
+_KILL = (_CSRC + "skew_kill.cu",
+         "rotate_yolov3_tpu/ops/skew_iou_pallas.py:501")
+_NMS = (_CSRC + "nms_greedy.cu", "rotate_yolov3_tpu/ops/nms_pallas.py:189")
+_IOU = (_CSRC + "skew_iou_matrix.cu",
+        "rotate_yolov3_tpu/ops/skew_iou_pallas.py:368")
 KERNELS = {
-    "gather_rows": ("rotate_yolov3_tpu_torch/csrc/gather_rows.cu",
+    "gather_rows": (_CSRC + "gather_rows.cu",
                     "rotate_yolov3_tpu/ops/gather_rows.py:100"),
-    "skew_kill": ("rotate_yolov3_tpu_torch/csrc/skew_kill.cu",
-                  "rotate_yolov3_tpu/ops/skew_iou_pallas.py:501"),
-    "nms_greedy": ("rotate_yolov3_tpu_torch/csrc/nms_greedy.cu",
-                   "rotate_yolov3_tpu/ops/nms_pallas.py:189"),
+    "skew_kill:green": _KILL, "skew_kill:green2": _KILL,
+    "skew_kill:candidates": _KILL,
+    "nms_greedy:green": _NMS, "nms_greedy:green2": _NMS,
+    "decode_rows": (_CSRC + "decode_rows.cu",
+                    "rotate_yolov3_tpu/ops/decode_pallas.py:188"),
+    "skew_iou_matrix:green": _IOU, "skew_iou_matrix:green2": _IOU,
+    "skew_iou_matrix:candidates": _IOU,
 }
 
 
@@ -172,7 +220,7 @@ def _detection_boxes(torch, gen, k: int):
     608-px image, the last eighth zero-area padding as on the serving
     path."""
     u = lambda lo, hi: lo + (hi - lo) * torch.rand(
-        (B_CHECK, k), generator=gen, device="cuda")
+        (B_CHECK, k), generator=gen, device=DEVICE)
     boxes = torch.stack([u(0, 608), u(0, 608), u(10, 160), u(10, 160),
                          u(-3.1416, 3.1416)], dim=-1).contiguous()
     boxes[:, k - k // 8:] = 0.0
@@ -218,8 +266,8 @@ def phase_kill(torch, card, results) -> None:
                 f"{plain:.4f} ms "
                 f"[{card}]")
             if k == 512 and cls_id is None:
-                results["skew_kill"] = {"ms": ms, "plain_ms": plain}
-    results["skew_kill"]["max_abs_err"] = worst
+                results["skew_kill:green"] = {"ms": ms, "plain_ms": plain}
+    results["skew_kill:green"]["max_abs_err"] = worst
 
 
 def _check_detections(torch, dets, mask, max_det: int) -> None:
@@ -275,8 +323,8 @@ def phase_slice(torch, card, results) -> None:
                 raise AssertionError(f"slice {name}: a kernel of the path "
                                      f"did not launch: {launches}")
             if dtype == torch.bfloat16:
-                for key, n in launches.items():
-                    results[key]["launches"] = n
+                results["gather_rows"]["launches"] = launches["gather_rows"]
+                results["skew_kill:green"]["launches"] = launches["skew_kill"]
             for dets, mask in outs:
                 _check_detections(torch, dets, mask, det.max_det)
 
@@ -555,7 +603,7 @@ def phase_nms_greedy(torch, card, results) -> None:
             f"ms, plain {plain:.4f} ms; per call C {call:.4f} ms, B + "
             f"fixpoint {call_two:.4f} ms [{card}]")
         if (b, k, special) == (1, 1024, False):
-            results["nms_greedy"] = {"ms": ms, "plain_ms": plain,
+            results["nms_greedy:green"] = {"ms": ms, "plain_ms": plain,
                                      "max_abs_err": float(
                                          (keep[clean].float()
                                           - ref[clean].float()).abs().max())}
@@ -694,7 +742,8 @@ def phase_dota(torch, card, results) -> None:
                 raise AssertionError(f"dota {name}: a kernel of the path did "
                                      f"not launch: {launches}")
             if dtype == torch.bfloat16:
-                results["nms_greedy"]["launches"] = launches["nms_greedy"]
+                results["nms_greedy:green"]["launches"] = \
+                    launches["nms_greedy"]
             kept = dets[mask]
             if dets.shape != (1024, 7) or mask.shape != (1024,) or \
                     not bool(torch.isfinite(torch.from_numpy(dets)).all()) \
@@ -715,7 +764,7 @@ def phase_dota(torch, card, results) -> None:
                 tile_dets, tile_mask = det(lb)
                 errs = _tiles_vs_plain(torch, card, name, det, lb, tile_dets,
                                        tile_mask)
-                for key, err in zip(("gather_rows", "skew_kill"), errs):
+                for key, err in zip(("gather_rows", "skew_kill:green"), errs):
                     results[key]["max_abs_err"] = max(
                         results[key]["max_abs_err"], err)
                 rows, valid, _ = pipe.select(tile_dets, tile_mask, ratio,
@@ -856,6 +905,573 @@ def phase_fused_serving(torch, card) -> None:
     del det, x, heads
 
 
+def _max_err(got, want) -> float:
+    """max |got - want| as floats; 0 for empty tensors."""
+    if got.numel() == 0:
+        return 0.0
+    return float((got.float() - want.float()).abs().max())
+
+
+def _clean_images(torch, boxes, cls, valid, thr: float = THR):
+    """(B,) bool: images with no live pair (j > i, both valid, same class)
+    whose IoU lies within ±BAND of ``thr``, where any two exact pair algos
+    or predicates may decide differently."""
+    from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
+
+    k = boxes.shape[1]
+    iou = skew_iou_green(boxes[:, :, None, :], boxes[:, None, :, :])
+    live = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1) \
+        & valid[:, :, None] & valid[:, None, :]
+    if cls is not None:
+        live &= cls[:, :, None] == cls[:, None, :]
+    return ~(((iou - thr).abs() <= BAND) & live).any(dim=(1, 2))
+
+
+def _same_on_clean(torch, what, boxes, cls, valid, got, want) -> str:
+    """Raise unless the (keep, detections) pairs ``got`` and ``want`` are
+    equal on every image without a pair in the band; describe the match."""
+    got = [g.to(w.device) for g, w in zip(got, want)]
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return f"equal on all {len(got[0])} images"
+    clean = _clean_images(torch, boxes, cls, valid).to(want[0].device)
+    for g, w in zip(got, want):
+        if not torch.equal(g[clean], w[clean]):
+            raise AssertionError(f"{what}: differs on an image with no pair "
+                                 f"within ±{BAND} of thr")
+    return (f"equal on the {int(clean.sum())} of {clean.numel()} images "
+            f"without a pair within ±{BAND} of thr; an image with one "
+            f"differs")
+
+
+def phase_iou_matrix(torch, card, results) -> None:
+    """Kernel E, each algo, against its plain version and the argsort
+    oracle."""
+    from rotate_yolov3_tpu_torch.ops.skew_iou import \
+        skew_iou_matrix as argsort_iou
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import (
+        ALGOS, skew_iou_matrix, skew_iou_matrix_ref)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    u = lambda n, lo, hi: lo + (hi - lo) * torch.rand(
+        n, generator=gen, device=DEVICE)
+    small = [torch.stack([u(n, 0, 60), u(n, 0, 60), u(n, 5, 30),
+                          u(n, 5, 30), u(n, -3.1416, 3.1416)], dim=-1)
+             for n in (17, 33)]
+    det = _detection_boxes(torch, gen, 512)          # (B_CHECK, 512, 5)
+    deg = torch.tensor(DEGENERATE, dtype=torch.float32, device=DEVICE)
+    cases = [("17x33", small[0], small[1]), ("512x512", det[0], det[0]),
+             ("degenerate", deg, deg)]
+    for algo in ALGOS:
+        worst = worst_arg = 0.0
+        for name, a, b in cases:
+            oracle = argsort_iou(a, b)
+            for triangle in (False, True):
+                got = skew_iou_matrix(a, b, triangle, algo)
+                ref = skew_iou_matrix_ref(a, b, triangle, algo)
+                err = float((got - ref).abs().max())
+                if not err <= IOU_TOL or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"skew_iou_matrix {algo} {name} "
+                                         f"triangle={triangle}: {err} from "
+                                         f"the plain version")
+                worst = max(worst, err)
+                if triangle:
+                    up = torch.ones_like(got, dtype=torch.bool).triu(1)
+                    if bool(got[~up].any()) or not torch.equal(
+                            got[up], full[up]):
+                        raise AssertionError(f"skew_iou_matrix {algo} "
+                                             f"{name}: triangle is not the "
+                                             f"full matrix above the "
+                                             f"diagonal and 0 below")
+                else:
+                    full = got
+                    arg = float((got - oracle).abs().max())
+                    if arg > ARGSORT_TOL:
+                        raise AssertionError(f"skew_iou_matrix {algo} "
+                                             f"{name}: {arg} from the "
+                                             f"argsort oracle")
+                    worst_arg = max(worst_arg, arg)
+            if name == "degenerate" and float(
+                    (full.diagonal() - 1).abs().max()) > ARGSORT_TOL:
+                raise AssertionError(f"skew_iou_matrix {algo}: a degenerate "
+                                     f"box's IoU with itself is not 1")
+        # B_CHECK images through the per-image hook, as the NMS calls it
+        hook = torch.stack([skew_iou_matrix(x, x, True, algo) for x in det])
+        hook_ref = torch.stack([skew_iou_matrix_ref(x, x, True, algo)
+                                for x in det])
+        err = float((hook - hook_ref).abs().max())
+        if err > IOU_TOL:
+            raise AssertionError(f"skew_iou_matrix {algo} hook B={B_CHECK}: "
+                                 f"{err} from the plain version")
+        worst = max(worst, err)
+        x = det[0]
+        ms = device_ms(torch, lambda: skew_iou_matrix(x, x, True, algo),
+                       reps=20)
+        plain = device_ms(torch, lambda: skew_iou_matrix_ref(x, x, True,
+                                                             algo), reps=3)
+        log(f"skew_iou_matrix {algo}: 17x33, 512x512 and the degenerate set "
+            f"(triangle off and on) and B={B_CHECK} x 512x512 per image "
+            f"within {worst:.3g} of the plain version (limit {IOU_TOL}), "
+            f"within {worst_arg:.3g} of the argsort oracle (limit "
+            f"{ARGSORT_TOL}); 512x512 triangle: device kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms [{card}]")
+        results[f"skew_iou_matrix:{algo}"] = {
+            "ms": ms, "plain_ms": plain, "max_abs_err": worst}
+
+
+def phase_pair_algos(torch, card, results) -> None:
+    """Kernel B' (green2, candidates) and kernel C's green2."""
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import (nms_greedy,
+                                                        nms_greedy_ref)
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import keep_two_stage
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import (
+        ALGOS, skew_kill_matrix, skew_kill_matrix_ref)
+    from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
+
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    boxes = _detection_boxes(torch, gen, 512)
+    cls = torch.randint(0, 15, (B_CHECK, 512), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    valid = torch.ones((B_CHECK, 512), dtype=torch.bool, device=DEVICE)
+    deg = torch.tensor(DEGENERATE, dtype=torch.float32, device=DEVICE)[None]
+    deg_ok = torch.ones((1, len(DEGENERATE)), dtype=torch.bool,
+                        device=DEVICE)
+    deg_clean = bool(_clean_images(torch, deg, None, deg_ok).all())
+    iou = skew_iou_green(boxes[:, :, None, :], boxes[:, None, :, :])
+    far = (iou - THR).abs() > BAND
+    for algo in ALGOS[1:]:
+        worst = 0.0
+        for cls_id in (None, cls):
+            got = skew_kill_matrix(boxes, cls_id, THR, algo)
+            ref = skew_kill_matrix_ref(boxes, cls_id, THR, algo)
+            diff = got != ref
+            if bool((diff & far).any()):
+                raise AssertionError(f"skew_kill {algo}: {int((diff & far)
+                                     .sum())} pairs outside ±{BAND} of thr "
+                                     f"differ from the plain version")
+            worst = max(worst, _max_err(got[far], ref[far]))
+            kills = int(got.sum())
+            if kills == 0:
+                raise AssertionError(f"skew_kill {algo}: no pair kills")
+            ms = device_ms(torch, lambda: skew_kill_matrix(boxes, cls_id,
+                                                           THR, algo))
+            plain = device_ms(torch, lambda: skew_kill_matrix_ref(
+                boxes, cls_id, THR, algo), reps=2)
+            tag = "cls" if cls_id is not None else "no-cls"
+            log(f"skew_kill {algo} {tag} B={B_CHECK} K=512 thr={THR}: equal "
+                f"to the plain version on {int(far.sum())} pairs, "
+                f"{int((~far).sum())} excluded within ±{BAND}, "
+                f"{int(diff.sum())} differ inside the band, {kills} kills; "
+                f"device kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+            if cls_id is None:
+                results[f"skew_kill:{algo}"] = {"ms": ms, "plain_ms": plain}
+        # the degenerate boxes through this algo, against green and plain
+        d_got = skew_kill_matrix(deg, None, THR, algo)
+        d_ref = skew_kill_matrix_ref(deg, None, THR, algo)
+        d_green = skew_kill_matrix(deg, None, THR, "green")
+        if deg_clean and not (torch.equal(d_got, d_ref)
+                              and torch.equal(d_got, d_green)):
+            raise AssertionError(f"skew_kill {algo}: degenerate boxes differ "
+                                 f"from the plain version or from green")
+        results[f"skew_kill:{algo}"]["max_abs_err"] = worst
+        log(f"skew_kill {algo} degenerate set: {int(d_got.sum())} kills, "
+            f"equal to the plain version and to green [{card}]")
+
+    # kernel C, green2: bit for bit kernel B green2 + fixpoint; "candidates"
+    # computes green, as in the reference
+    for n_cls in (0, 15):
+        nb, ncls, nvalid = _nms_boxes(torch, gen, B_CHECK, 512, n_cls, True)
+        keep = nms_greedy(nb, ncls, nvalid, THR, algo="green2")
+        two = keep_two_stage(nb, ncls, nvalid, THR, algo="green2")
+        if not torch.equal(keep, two):
+            raise AssertionError("nms_greedy green2: keep differs from "
+                                 "kernel B green2 + fixpoint")
+        ref = nms_greedy_ref(nb, ncls, nvalid, THR, algo="green2")
+        clean = _clean_images(torch, nb, ncls, nvalid)
+        if not torch.equal(keep[clean], ref[clean]):
+            raise AssertionError("nms_greedy green2: keep differs from the "
+                                 "plain version on an image without a band "
+                                 "pair")
+        if not torch.equal(nms_greedy(nb, ncls, nvalid, THR,
+                                      algo="candidates"),
+                           nms_greedy(nb, ncls, nvalid, THR, algo="green")):
+            raise AssertionError("nms_greedy: algo 'candidates' is not "
+                                 "'green'")
+        alt = torch.arange(512, device=DEVICE) % 2 == 0
+        if not torch.equal(keep[0], alt) or bool(keep[-1].any()):
+            raise AssertionError("nms_greedy green2: wrong keep on the chain "
+                                 "or the all-invalid image")
+        ms = device_ms(torch, lambda: nms_greedy(nb, ncls, nvalid, THR,
+                                                 algo="green2"), reps=50)
+        two_ms = device_ms(torch, lambda: keep_two_stage(
+            nb, ncls, nvalid, THR, algo="green2"))
+        plain = device_ms(torch, lambda: nms_greedy_ref(
+            nb, ncls, nvalid, THR, algo="green2"), reps=2)
+        green_ms = device_ms(torch, lambda: nms_greedy(nb, ncls, nvalid, THR),
+                             reps=50)
+        tag = f"{n_cls} classes" if n_cls else "no-cls"
+        log(f"nms_greedy green2 {tag} B={B_CHECK} K=512 (chain + "
+            f"all-invalid): keep equal to kernel B green2 + fixpoint, to "
+            f"the plain version on {int(clean.sum())} of {B_CHECK} images "
+            f"without a band pair; 'candidates' equal to 'green'; "
+            f"{int(keep.sum())} kept; device kernel C green2 {ms:.4f} ms "
+            f"(green {green_ms:.4f}), kernel B green2 + fixpoint "
+            f"{two_ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+        if not n_cls:
+            results["nms_greedy:green2"] = {
+                "ms": ms, "plain_ms": plain,
+                "max_abs_err": _max_err(keep[clean], ref[clean])}
+
+
+def _random_head_maps(torch, gen, specs, img: int, b: int, dtype):
+    """Seeded N(0, 2) raw head maps of an img² input with, in every other
+    grid row, class 1's logits copied into class 4, so the class argmax meets
+    exact ties."""
+    na, no, nc = specs[0].na, specs[0].no, specs[0].num_classes
+    heads = []
+    for y in specs:
+        g = img // y.stride
+        h = 2.0 * torch.randn((b, g, g, na * no), generator=gen,
+                              device=DEVICE)
+        if nc > 4:   # field-major lanes: class c of anchor a at (6+c)*na+a
+            h[:, ::2, :, 10 * na:11 * na] = h[:, ::2, :, 7 * na:8 * na]
+        heads.append(h.to(dtype))
+    return heads
+
+
+def phase_decode(torch, card, results) -> None:
+    """Kernel D against its plain version and against kernel A + the plain
+    decode it replaces."""
+    from rotate_yolov3_tpu_torch.config.parse import parse_model_cfg
+    from rotate_yolov3_tpu_torch.models.darknet import build_network
+    from rotate_yolov3_tpu_torch.ops.decode_rows import (decode_rows,
+                                                         decode_rows_ref,
+                                                         heads_meta)
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import decode_candidates
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    k, img = 512, NET_IMG or 608
+    worst = 0.0
+    for cfg, b, dtypes in ((CFG, B_CHECK, (torch.bfloat16, torch.float32)),
+                           (DOTA_CFG, 25, (torch.bfloat16,))):
+        specs = build_network(parse_model_cfg(cfg), img_size=img).yolo_specs
+        na, nc = specs[0].na, specs[0].num_classes
+        for dtype in dtypes:
+            heads = _random_head_maps(torch, gen, specs, img, b, dtype)
+            meta = heads_meta(specs, [h.shape for h in heads])
+            n = sum(m.n_cells for m in meta) * na
+            idx = torch.randint(0, n, (b, k), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+            edges, off = [], 0
+            for m in meta:                  # first and last of every head
+                edges += [off, off + m.n_cells * na - 1]
+                off += m.n_cells * na
+            idx[:, :len(edges)] = torch.tensor(edges, dtype=torch.int32)
+            valid = torch.rand((b, k), generator=gen, device=DEVICE) > 0.2
+            got = decode_rows(heads, idx, valid, meta, na, nc)
+            ref = decode_rows_ref(heads, idx, valid, meta, na, nc)
+            err = (got[..., :5] - ref[..., :5]).abs()
+            if bool((err > DECODE_ATOL + DECODE_RTOL
+                     * ref[..., :5].abs()).any()) or \
+                    not torch.equal(got[..., 5], ref[..., 5]) or \
+                    bool(got[..., 6:].any()) or \
+                    bool(got[~valid][:, :5].any()):
+                raise AssertionError(f"decode_rows {cfg} {dtype}: kernel "
+                                     f"differs from the plain version")
+            worst = max(worst, float(err.max()))
+            # rows whose class maximum is tied between classes
+            cells = torch.cat([h.reshape(b, -1, h.shape[-1]) for h in heads],
+                              dim=1)
+            g = idx.long()
+            lanes = (6 + torch.arange(nc, device=DEVICE)) * na \
+                + (g % na)[..., None]
+            rows = torch.gather(cells, 1, (g // na)[..., None].expand(
+                -1, -1, cells.shape[-1]))
+            logits = torch.gather(rows, 2, lanes).float()
+            ties = int(((logits == logits.amax(-1, keepdim=True)).sum(-1)
+                        > 1).sum()) if nc > 1 else 0
+            ms = device_ms(torch, lambda: decode_rows(heads, idx, valid, meta,
+                                                      na, nc), reps=20)
+            plain = device_ms(torch, lambda: decode_rows_ref(
+                heads, idx, valid, meta, na, nc), reps=5)
+            a_plus = device_ms(torch, lambda: decode_candidates(
+                heads, specs, idx, valid, True), reps=5)
+            name = str(dtype)[6:]
+            log(f"decode_rows {os.path.basename(cfg)} {name} B={b} "
+                f"cells={n // na} C={heads[0].shape[-1]} K={k} nc={nc}: "
+                f"boxes within {float(err.max()):.3g} of the plain version "
+                f"(rtol {DECODE_RTOL}, atol {DECODE_ATOL}), class ids equal "
+                f"({ties} rows with a tied class maximum), columns 6-7 "
+                f"zero; device kernel D {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"kernel A + decode {a_plus:.4f} ms [{card}]")
+            if cfg == CFG and dtype == torch.bfloat16:
+                results["decode_rows"] = {"ms": ms, "plain_ms": plain}
+    results["decode_rows"]["max_abs_err"] = worst
+
+
+def phase_options(torch, card, results) -> None:
+    """The slice's paths at 608², B = B_CHECK, max_det 512: 1
+    ``Detector(iou_algo=...)``, 2 ``Detector(iou_matrix_fn=...)``, 3
+    ``non_max_suppression(det.predict_raw(x))`` with and without a hook, 4
+    ``non_max_suppression_fused(decode_kernel=True[, fused_greedy=True])``
+    for each ``iou_algo``; then their per-call time at B = B_BENCH."""
+    from functools import partial
+
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.ops.decode_rows import (decode_rows,
+                                                         decode_rows_ref,
+                                                         heads_meta)
+    from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import (kernel_algo,
+                                                        nms_greedy)
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import (
+        decode_candidates, greedy_suppress_fixpoint_kill, keep_fn_for,
+        nms_candidates, nms_from_candidates, non_max_suppression,
+        non_max_suppression_fused, select_candidates)
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import (
+        ALGOS, skew_iou_matrix, skew_iou_matrix_auto_nms,
+        skew_iou_matrix_ref, skew_kill_matrix, skew_kill_matrix_ref)
+
+    counted = (gather_rows, skew_kill_matrix, nms_greedy, decode_rows,
+               skew_iou_matrix)
+
+    def run(fn):
+        """``fn()`` with every launch count from 0; (its result, counts)."""
+        for f in counted:
+            f.launches = 0
+            if hasattr(f, "algo_launches"):
+                f.algo_launches = dict.fromkeys(f.algo_launches, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        n = {"gather_rows": gather_rows.launches,
+             "decode_rows": decode_rows.launches}
+        for f, key in ((skew_kill_matrix, "skew_kill"),
+                       (nms_greedy, "nms_greedy"),
+                       (skew_iou_matrix, "skew_iou_matrix")):
+            n.update({f"{key}:{a}": c for a, c in f.algo_launches.items()})
+        return out, n
+
+    def plain_kill(algo):
+        """Kernel B's plain version with ``algo`` + the fixpoint."""
+        return lambda b, c, v, iou_thr: greedy_suppress_fixpoint_kill(
+            skew_kill_matrix_ref(b, c, iou_thr, algo), v)
+
+    hooks = {  # name -> (hook, its plain version, the algo it launches)
+        "skew_iou_matrix_auto_nms": (
+            skew_iou_matrix_auto_nms,
+            partial(skew_iou_matrix_ref, triangle=True), "green"),
+        "skew_iou_matrix": (skew_iou_matrix, skew_iou_matrix_ref, "green"),
+        "skew_iou_matrix(algo=green2, triangle)": (
+            partial(skew_iou_matrix, algo="green2", triangle=True),
+            partial(skew_iou_matrix_ref, algo="green2", triangle=True),
+            "green2"),
+        "skew_iou_matrix(algo=candidates)": (
+            partial(skew_iou_matrix, algo="candidates"),
+            partial(skew_iou_matrix_ref, algo="candidates"), "candidates"),
+    }
+    max_det, img = 512, NET_IMG or 608
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randint(0, 256, (B_CHECK, img, img, 3), generator=gen,
+                      dtype=torch.uint8)
+    path_launches: dict = {}
+    dets_bf16: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            kw = dict(img_size=NET_IMG, conf_thres=CONF, nms_thres=THR,
+                      max_det=max_det, compute_dtype=dtype, seed=0,
+                      device=DEVICE)
+            base = Detector(CFG, **kw)
+            specs, fm = base.spec.yolo_specs, base.field_major_heads
+            use_cls = specs[0].num_classes > 1
+
+            def stages(det):
+                heads = det.heads(x)
+                scores, idx, valid = select_candidates(
+                    heads, specs, CONF, max_det, det.approx_top_k, fm)
+                boxes, cls = decode_candidates(heads, specs, idx, valid, fm)
+                return heads, idx, (boxes, scores, cls, valid)
+
+            def check(path, got, n, expect, staged, keep_fn, plain_fn):
+                """The entry point's (detections, keep) ``got``, its launch
+                counts ``n``: each kernel of ``expect`` launched; ``got``
+                equals the stages through the kernels, and the plain
+                versions (and in f32 the CPU path) on the same boxes."""
+                missing = {key: n[key] for key in expect if n[key] < 1}
+                if missing:
+                    raise AssertionError(f"{path} {name}: a kernel of the "
+                                         f"path did not launch: {missing}")
+                if dtype == torch.bfloat16:
+                    for key in expect:
+                        path_launches[key] = path_launches.get(key, 0) \
+                            + n[key]
+                _check_detections(torch, got[0], got[1], max_det)
+                boxes, scores, cls, valid = staged
+                want = nms_from_candidates(boxes, scores, cls, valid, THR,
+                                           use_cls, max_det, keep_fn=keep_fn)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{path} {name}: the entry point "
+                                         f"differs from its stages")
+                cls_arg = cls if use_cls else None
+                plain = nms_from_candidates(boxes, scores, cls, valid, THR,
+                                            use_cls, max_det,
+                                            keep_fn=plain_fn)
+                msg = "plain: " + _same_on_clean(
+                    torch, f"{path} {name} vs plain", boxes, cls_arg, valid,
+                    got[::-1], plain[::-1])
+                if dtype == torch.float32:
+                    cpu = [t.cpu() for t in staged]
+                    out_c = nms_from_candidates(*cpu, THR, use_cls, max_det,
+                                                keep_fn=keep_fn)
+                    msg += "; CPU path: " + _same_on_clean(
+                        torch, f"{path} f32 vs the CPU path", boxes,
+                        cls_arg, valid, got[::-1], out_c[::-1])
+                log(f"{path} {name} B={B_CHECK} max_det={max_det} @{img}: "
+                    f"launches { {k: n[k] for k in expect} }; "
+                    f"{int(got[1].sum())} kept; keep and detections equal "
+                    f"to the stages through the kernels; {msg} [{card}]")
+
+            # 1: the kill mask's pair algo
+            for algo in ALGOS[1:]:
+                det = Detector(CFG, iou_algo=algo, **kw)
+                got, n = run(lambda: det(x))
+                check(f"Detector(iou_algo={algo!r})", got, n,
+                      ("gather_rows", f"skew_kill:{algo}"), stages(det)[2],
+                      keep_fn_for(None, algo), plain_kill(algo))
+                if dtype == torch.bfloat16:
+                    dets_bf16[f"iou_algo={algo}"] = det
+            # 2: the IoU-matrix hook (kernel E once per image)
+            for hname, (hook, plain_hook, algo) in hooks.items():
+                det = Detector(CFG, iou_matrix_fn=hook, **kw)
+                got, n = run(lambda: det(x))
+                if n[f"skew_iou_matrix:{algo}"] != B_CHECK or \
+                        any(n[f"skew_kill:{a}"] for a in ALGOS):
+                    raise AssertionError(f"iou_matrix_fn={hname}: kernel E "
+                                         f"not once per image, or the kill "
+                                         f"mask ran: {n}")
+                check(f"Detector(iou_matrix_fn={hname})", got, n,
+                      ("gather_rows", f"skew_iou_matrix:{algo}"),
+                      stages(det)[2], keep_fn_for(hook),
+                      keep_fn_for(plain_hook))
+                if dtype == torch.bfloat16:
+                    dets_bf16[f"iou_matrix_fn={hname}"] = det
+            # 3: the decoded-input entry
+            pred = base.predict_raw(x)
+            staged = nms_candidates(pred, CONF, max_det)
+            for hname, hook, plain_hook, key in (
+                    ("None", None, None, "skew_kill:green"),
+                    ("skew_iou_matrix_auto_nms", skew_iou_matrix_auto_nms,
+                     partial(skew_iou_matrix_ref, triangle=True),
+                     "skew_iou_matrix:green")):
+                got, n = run(lambda: non_max_suppression(
+                    pred, CONF, THR, max_det, iou_matrix_fn=hook))
+                check(f"non_max_suppression(predict_raw, iou_matrix_fn="
+                      f"{hname})", got, n, (key,), staged,
+                      keep_fn_for(hook),
+                      plain_kill("green") if hook is None
+                      else keep_fn_for(plain_hook))
+                if dtype == torch.float32:
+                    cpu = non_max_suppression(pred.cpu(), CONF, THR, max_det,
+                                              iou_matrix_fn=hook)
+                    log(f"non_max_suppression iou_matrix_fn={hname} f32, the "
+                        f"whole CPU path from the card's predictions: "
+                        + _same_on_clean(torch, "decoded-input f32 vs CPU",
+                                         staged[0], staged[2], staged[3],
+                                         got[::-1], cpu[::-1]) + f" [{card}]")
+            # 4: kernel D, with each pair algo, two-stage and fused
+            heads, idx, (boxes_a, scores, _, valid) = stages(base)
+            meta = heads_meta(specs, [h.shape for h in heads])
+            na, nc = specs[0].na, specs[0].num_classes
+            aos = decode_rows(heads, idx, valid, meta, na, nc, fm)
+            aos_r = decode_rows_ref(heads, idx, valid, meta, na, nc, fm)
+            err = float((aos[..., :5] - aos_r[..., :5]).abs().max())
+            if bool(((aos - aos_r).abs() > DECODE_ATOL
+                     + DECODE_RTOL * aos_r.abs()).any()) or \
+                    not torch.equal(aos[..., 5], aos_r[..., 5]):
+                raise AssertionError(f"decode_kernel {name}: kernel D "
+                                     f"differs from its plain version")
+            boxes_d = aos[..., :5].contiguous()
+            cls_d = aos[..., 5].to(torch.int32)
+            a_err = float((boxes_d - boxes_a).abs().max())
+            msg = (f"kernel D within {err:.3g} of its plain version and "
+                   f"{a_err:.3g} of kernel A + decode")
+            if dtype == torch.float32:
+                cpu = decode_rows([h.cpu() for h in heads], idx.cpu(),
+                                  valid.cpu(), meta, na, nc, fm)
+                c_err = float((cpu[..., :5] - aos[..., :5].cpu()).abs()
+                              .max())
+                if c_err > 1e-3 or not torch.equal(cpu[..., 5],
+                                                   aos[..., 5].cpu()):
+                    raise AssertionError(f"decode_kernel f32: kernel D "
+                                         f"{c_err} from the CPU path")
+                msg += f", {c_err:.3g} of the CPU path"
+            log(f"decode_kernel {name}: {msg} [{card}]")
+            staged = (boxes_d, scores, cls_d, valid)
+            for algo in ALGOS:
+                for fused in (False, True):
+                    got, n = run(lambda: non_max_suppression_fused(
+                        heads, specs, conf_thres=CONF, nms_thres=THR,
+                        max_det=max_det, approx_top_k=base.approx_top_k,
+                        field_major=fm, iou_algo=algo, fused_greedy=fused,
+                        decode_kernel=True))
+                    if n["gather_rows"]:
+                        raise AssertionError("decode_kernel: kernel A ran")
+                    key = (f"nms_greedy:{kernel_algo(algo)}" if fused
+                           else f"skew_kill:{algo}")
+                    check(f"non_max_suppression_fused(decode_kernel=True, "
+                          f"fused_greedy={fused}, iou_algo={algo!r})", got,
+                          n, ("decode_rows", key), staged,
+                          keep_fn_for(None, algo, fused, max_det),
+                          plain_kill(kernel_algo(algo) if fused else algo))
+            del base, det, heads, pred
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+    for key, n in path_launches.items():     # phases 4 and 7 set A, B, C
+        results.setdefault(key, {}).setdefault("launches", n)
+
+    # per-call time at B = B_BENCH, bf16, beside the default path
+    det = Detector(CFG, img_size=NET_IMG, conf_thres=CONF, nms_thres=THR,
+                   max_det=max_det, compute_dtype=torch.bfloat16, seed=0,
+                   device=DEVICE)
+    specs, fm = det.spec.yolo_specs, det.field_major_heads
+    xb = torch.randint(0, 256, (B_BENCH, img, img, 3), generator=gen,
+                       dtype=torch.uint8).to(DEVICE)
+    times = {"default": time_ms(torch, lambda: det(xb), reps=5, warmup=2)}
+    for key, d in dets_bf16.items():
+        times[key] = time_ms(torch, lambda: d(xb), reps=3, warmup=1)
+    for hname, hook in (("None", None),
+                        ("skew_iou_matrix_auto_nms",
+                         skew_iou_matrix_auto_nms)):
+        times[f"non_max_suppression(predict_raw, iou_matrix_fn={hname})"] = \
+            time_ms(torch, lambda: non_max_suppression(
+                det.predict_raw(xb), CONF, THR, max_det,
+                iou_matrix_fn=hook), reps=3, warmup=1)
+    log(f"options bf16 B={B_BENCH} max_det={max_det} @{img}, ms per call "
+        f"(CUDA events, median): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items()) + f" [{card}]")
+    heads = det.heads(xb)
+    tails = {}
+    for tag, extra in (("default", {}),
+                       ("decode_kernel", {"decode_kernel": True}),
+                       ("decode_kernel+fused_greedy",
+                        {"decode_kernel": True, "fused_greedy": True}),
+                       ("fused_greedy", {"fused_greedy": True})):
+        tails[tag] = time_ms(torch, lambda: non_max_suppression_fused(
+            heads, specs, conf_thres=CONF, nms_thres=THR, max_det=max_det,
+            approx_top_k=det.approx_top_k, field_major=fm, **extra),
+            reps=5, warmup=1)
+    log(f"NMS tail from the heads, bf16 B={B_BENCH} max_det={max_det}, ms "
+        f"per call: " + ", ".join(f"{k} {v:.3f}" for k, v in tails.items())
+        + f" [{card}]")
+    del det, xb, heads, dets_bf16
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -878,6 +1494,10 @@ def main() -> int:
     phase_nms_greedy(torch, card, results)
     phase_dota(torch, card, results)
     phase_fused_serving(torch, card)
+    phase_iou_matrix(torch, card, results)
+    phase_pair_algos(torch, card, results)
+    phase_decode(torch, card, results)
+    phase_options(torch, card, results)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

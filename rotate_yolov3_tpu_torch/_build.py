@@ -29,8 +29,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-file flags: the skew-IoU arithmetic must not be contracted into FMAs
 # (see the note at the top of csrc/skew_green.cuh)
-EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"skew_kill": ("-fmad=false",),
-                                           "nms_greedy": ("-fmad=false",)}
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "skew_kill": ("-fmad=false",), "nms_greedy": ("-fmad=false",),
+    "skew_iou_matrix": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (build seconds, nvcc/ptxas report) for libraries built in this

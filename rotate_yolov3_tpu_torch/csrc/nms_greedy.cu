@@ -8,7 +8,8 @@
 // rotate_yolov3_tpu/ops/rotated_nms.py::greedy_suppress_fixpoint).
 //
 // Replaces the TPU kernel rotate_yolov3_tpu/ops/nms_pallas.py::
-// nms_greedy_pallas (body _nms_kernel). That kernel carries a (K, K) VMEM
+// nms_greedy_pallas (body _nms_kernel), with its two pair algos ("green",
+// "green2"; one template instance each). That kernel carries a (K, K) VMEM
 // scratch across sequential grid steps and runs the fixpoint as MXU matvecs
 // on the last step. CUDA blocks run in no order, so here:
 //   * one launch per call, grid (tile pairs, B): each block evaluates a tile
@@ -58,6 +59,7 @@ __device__ __forceinline__ void load_chunk(const uint32_t* mask_b, int c,
   }
 }
 
+template <int kAlgo>
 __global__ void __launch_bounds__(kTile * kWarps)
     nms_greedy_kernel(const float* __restrict__ boxes,
                       const int* __restrict__ cls,
@@ -96,8 +98,8 @@ __global__ void __launch_bounds__(kTile * kWarps)
     for (int r = warp; r < kTile; r += kWarps) {
       const int i = row0 + r;
       const bool kill = i < k && j < k &&
-                        skew_green::kills(rows[r], cols[lane], i, j, thr,
-                                          one_plus_thr);
+                        skew_green::kills<kAlgo>(rows[r], cols[lane], i, j,
+                                                 thr, one_plus_thr);
       const uint32_t word = __ballot_sync(kFull, kill);
       if (lane == 0 && i < k) mask_b[(int64_t)i * nw + tc] = word;
     }
@@ -142,21 +144,35 @@ __global__ void __launch_bounds__(kTile * kWarps)
 
 // Returns the cudaError_t of the launch (0 on success). cls may be null
 // (class-agnostic suppression). mask holds b * k * ceil(k / 32) uint32
-// words, done b counters; both are scratch the kernel overwrites.
+// words, done b counters; both are scratch the kernel overwrites. algo is
+// skew_green::kGreen or kGreen2.
 extern "C" int nms_greedy_launch(const void* boxes, const void* cls,
                                  const void* valid, void* mask, void* done,
                                  void* keep, int b, int k, float thr,
-                                 float one_plus_thr, void* stream) {
+                                 float one_plus_thr, int algo,
+                                 void* stream) {
   if (b == 0 || k == 0) return 0;
-  if (k > kMaxK || b > 65535) return (int)cudaErrorInvalidValue;
+  if (k > kMaxK || b > 65535 ||
+      (algo != skew_green::kGreen && algo != skew_green::kGreen2)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(done, 0, sizeof(unsigned) * b, s);
   if (err != cudaSuccess) return (int)err;
   const int nw = (k + kTile - 1) / kTile;
   const dim3 block(kTile, kWarps);
   const dim3 grid((unsigned)(nw * nw), (unsigned)b);
-  nms_greedy_kernel<<<grid, block, 0, s>>>(
-      (const float*)boxes, (const int*)cls, (const uint8_t*)valid,
-      (uint32_t*)mask, (unsigned*)done, (uint8_t*)keep, k, thr, one_plus_thr);
+  const float* bx = (const float*)boxes;
+  const int* cl = (const int*)cls;
+  const uint8_t* va = (const uint8_t*)valid;
+  if (algo == skew_green::kGreen2) {
+    nms_greedy_kernel<skew_green::kGreen2><<<grid, block, 0, s>>>(
+        bx, cl, va, (uint32_t*)mask, (unsigned*)done, (uint8_t*)keep, k, thr,
+        one_plus_thr);
+  } else {
+    nms_greedy_kernel<skew_green::kGreen><<<grid, block, 0, s>>>(
+        bx, cl, va, (uint32_t*)mask, (unsigned*)done, (uint8_t*)keep, k, thr,
+        one_plus_thr);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,27 @@
-// Exact rotated-rectangle intersection by Green's-theorem slab clipping, and
-// the divide-free greedy-NMS kill predicate built on it. Device code shared
-// by kernel B (skew_kill.cu) and kernel C (nms_greedy.cu), so both decide
-// every pair with the same arithmetic.
-//
-// The intersection is rotate_yolov3_tpu/ops/skew_iou_green.py::
-// inter_area_green written in the same operation order: the sigma shifts,
-// the reciprocals shared by opposite edges, the clamp to min(A, B) and the
-// divide-free predicate.
+// Exact rotated-rectangle intersection, its IoU and the divide-free
+// greedy-NMS kill predicate. Device code shared by kernel B (skew_kill.cu),
+// kernel C (nms_greedy.cu) and kernel E (skew_iou_matrix.cu), so all three
+// decide every pair with the same arithmetic. Three pair algos, each written
+// in the operation order of its plain version in the port (which follows
+// the reference):
+//   kGreen       Green's-theorem slab clipping,
+//                rotate_yolov3_tpu/ops/skew_iou_green.py::inter_area_green;
+//   kGreen2      the same in B's rotated frame, inter_area_green_bframe;
+//   kCandidates  24 candidate vertices, the first 8 valid compacted into
+//                slots, ranked by a diamond angle, masked shoelace:
+//                rotate_yolov3_tpu/ops/skew_iou_pallas.py::_candidates and
+//                _area_from_candidates (sums in candidate order).
 //
 // Every source that includes this header is built with -fmad=false and
-// without --use_fast_math, and uses cosf/sinf: contracting a*b+c into an
-// FMA changes the parallel-edge products the Green code relies on (the TPU
-// kernel was bitten by exactly this), and the code relies on IEEE 1/0 =
-// +-inf for edges parallel to a slab. min/max below propagate NaN as
-// jnp.minimum/torch.minimum do (fminf/fmaxf return the other operand): a
-// NaN anywhere in a clip window must make hi > lo false.
+// without --use_fast_math, and uses cosf/sinf, sqrtf and IEEE division:
+// contracting a*b+c into an FMA changes the parallel-edge products the Green
+// code relies on and mints spurious parallel-edge candidates (the TPU kernel
+// was bitten by exactly this), the candidates' inclusive 1e-6 tolerances
+// must be computed as written, and the Green code relies on IEEE 1/0 = +-inf
+// for edges parallel to a slab (green2's reciprocals are +-inf for every
+// axis-aligned pair). min/max below propagate NaN as jnp.minimum /
+// torch.minimum do (fminf/fmaxf return the other operand): a NaN anywhere
+// in a clip window must make hi > lo false.
 
 #pragma once
 
@@ -25,6 +32,12 @@
 namespace skew_green {
 
 constexpr float kSigRel = 1e-5f;
+constexpr float kEps = 1e-8f;
+constexpr float kTol = 1e-6f;
+constexpr float kOnePlusTol = (float)(1.0 + 1e-6);
+
+// pair algos, in the order of ALGOS in ops/skew_iou_cuda.py
+enum : int { kGreen = 0, kGreen2 = 1, kCandidates = 2 };
 
 struct Box {
   float cx, cy, w, h, ux, uy;
@@ -140,6 +153,284 @@ __device__ inline float inter_area_green(const Box& a, const Box& b) {
   return nan_max(area, 0.0f);
 }
 
+// Green's line integral of one of B's edges in B's frame, clipped to the
+// shrunk A: edge_contrib with its cross product p0 x p1 precomputed.
+__device__ __forceinline__ float edge_contrib_cross(float cross,
+                                                    const float d[4],
+                                                    float rs, float rt) {
+  const float tc0 = d[0] * rs;
+  const float tc1 = -(d[1] * rs);
+  const float tc2 = d[2] * rt;
+  const float tc3 = -(d[3] * rt);
+  const float lo =
+      nan_max(nan_max(nan_min(tc0, tc1), nan_min(tc2, tc3)), 0.0f);
+  const float hi =
+      nan_min(nan_min(nan_max(tc0, tc1), nan_max(tc2, tc3)), 1.0f);
+  const float c = 0.5f * (hi - lo) * cross;
+  return hi > lo ? c : 0.0f;
+}
+
+// inter_area_green in B's rotated frame: B's slabs are axis-aligned, its
+// corners (+-bhw, +-bhh), every clip reciprocal 1/(2m) of a half-dim x
+// cos/sin product, and each of B's edges has the cross product 2*bhw*bhh.
+__device__ inline float inter_area_green_bframe(const Box& a, const Box& b) {
+  const float uax = a.ux, uay = a.uy, ubx = b.ux, uby = b.uy;
+  const float ca = uax * ubx + uay * uby;  // cos(theta_a - theta_b)
+  const float sa = uay * ubx - uax * uby;  // sin(theta_a - theta_b)
+  const float ox = a.cx - b.cx, oy = a.cy - b.cy;
+  const float os = ox * ubx + oy * uby;    // A center in B frame
+  const float ot = -ox * uby + oy * ubx;
+
+  const float ahw = a.w * 0.5f, ahh = a.h * 0.5f;
+  const float bhw = b.w * 0.5f, bhh = b.h * 0.5f;
+  const float sig =
+      kSigRel * (0.5f * (a.w + a.h + b.w + b.h) + fabsf(ox) + fabsf(oy));
+  const float bhw_r = bhw + sig, bhh_r = bhh + sig;  // B expanded (relaxed)
+  const float ahw_s = ahw - sig, ahh_s = ahh - sig;  // A shrunk (strict)
+
+  const float m1 = ahw * ca, m2 = ahh * sa;
+  const float m3 = ahw * sa, m4 = ahh * ca;
+  const float p = m1 - m2, q = m1 + m2;
+  const float r = m3 + m4, w = m3 - m4;
+  const float s_[4] = {os - p, os + q, os + p, os - q};
+  const float t_[4] = {ot - r, ot + w, ot + r, ot - w};
+  // A edge directions: e0 = (2m1, 2m3), e1 = (-2m2, 2m4), e2/e3 negated
+  float ra[4][2];
+  ra[0][0] = 0.5f / m1;
+  ra[0][1] = 0.5f / m3;
+  ra[1][0] = -0.5f / m2;
+  ra[1][1] = 0.5f / m4;
+  ra[2][0] = -ra[0][0];
+  ra[2][1] = -ra[0][1];
+  ra[3][0] = -ra[1][0];
+  ra[3][1] = -ra[1][1];
+
+  const float n1 = bhw * ca, n2 = bhh * sa;
+  const float n3 = bhw * sa, n4 = bhh * ca;
+  // B corners projected on A's axes, A-centered
+  const float cu = os * ca + ot * sa;
+  const float cv = -os * sa + ot * ca;
+  const float pu = n1 - n2, qu = n1 + n2;
+  const float rv = n4 - n3, wv = n4 + n3;
+  const float u_[4] = {-qu - cu, pu - cu, qu - cu, -pu - cu};
+  const float v_[4] = {-rv - cv, -wv - cv, rv - cv, wv - cv};
+  // B edge directions on A's axes: e0 -> (2n1, -2n3), e1 -> (2n2, 2n4)
+  float rb[4][2];
+  rb[0][0] = 0.5f / n1;
+  rb[0][1] = -0.5f / n3;
+  rb[1][0] = 0.5f / n2;
+  rb[1][1] = 0.5f / n4;
+  rb[2][0] = -rb[0][0];
+  rb[2][1] = -rb[0][1];
+  rb[3][0] = -rb[1][0];
+  rb[3][1] = -rb[1][1];
+  const float bcross = 2.0f * bhw * bhh;
+
+  float area = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int n = (k + 1) & 3;
+    const float da[4] = {bhw_r - s_[k], bhw_r + s_[k], bhh_r - t_[k],
+                         bhh_r + t_[k]};
+    area = area + edge_contrib(s_[k], t_[k], s_[n], t_[n], da, ra[k][0],
+                               ra[k][1]);
+    const float db[4] = {ahw_s - u_[k], ahw_s + u_[k], ahh_s - v_[k],
+                         ahh_s + v_[k]};
+    area = area + edge_contrib_cross(bcross, db, rb[k][0], rb[k][1]);
+  }
+  return nan_max(area, 0.0f);
+}
+
+// ---- kCandidates --------------------------------------------------------
+
+// Absolute corners, CCW from (-w/2, -h/2), as _corners computes them.
+__device__ __forceinline__ void corners(const Box& p, float xs[4],
+                                        float ys[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float sx = (k == 1 || k == 2) ? 1.0f : -1.0f;
+    const float sy = (k >= 2) ? 1.0f : -1.0f;
+    const float dx = sx * p.w * 0.5f;
+    const float dy = sy * p.h * 0.5f;
+    xs[k] = p.cx + dx * p.ux - dy * p.uy;
+    ys[k] = p.cy + dx * p.uy + dy * p.ux;
+  }
+}
+
+// The running state of the candidate list: the count and coordinate sums of
+// the valid candidates so far, and the first 8 of them (the reference's
+// prefix-count compaction; unrolled, so the slots stay in registers).
+struct Slots {
+  float n, sum_x, sum_y;
+  float x[8], y[8];
+};
+
+__device__ __forceinline__ void add_candidate(Slots& st, float px, float py,
+                                              bool v) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    if (v && st.n == (float)s) {
+      st.x[s] = px;
+      st.y[s] = py;
+    }
+  }
+  const float vf = v ? 1.0f : 0.0f;
+  st.n = st.n + vf;
+  st.sum_x = st.sum_x + px * vf;
+  st.sum_y = st.sum_y + py * vf;
+}
+
+// Is (qx, qy) inside the CCW quad (cx, cy), with the inclusive tolerance
+// scaled by each edge's length?
+__device__ __forceinline__ bool inside(float qx, float qy, const float cx[4],
+                                       const float cy[4]) {
+  bool res = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float ex = cx[(j + 1) & 3] - cx[j];
+    const float ey = cy[(j + 1) & 3] - cy[j];
+    const float crs = ex * (qy - cy[j]) - ey * (qx - cx[j]);
+    const float tol = kTol * sqrtf(ex * ex + ey * ey + kEps);
+    res = res & (crs >= -tol);
+  }
+  return res;
+}
+
+// Branch-free monotonic surrogate of atan2(y, x), range [0, 4).
+__device__ __forceinline__ float diamond_angle(float y, float x) {
+  const float denom = fabsf(x) + fabsf(y);
+  const bool ok = denom > kEps;
+  const float t = y / (ok ? denom : 1.0f);
+  const float pos_y = x >= 0.0f ? t : 2.0f - t;
+  const float neg_y = x < 0.0f ? 2.0f - t : 4.0f + t;
+  const float ang = y >= 0.0f ? pos_y : neg_y;
+  return ok ? ang : 0.0f;
+}
+
+__device__ inline float inter_area_candidates(const Box& a, const Box& b) {
+  float ax[4], ay[4], bx[4], by[4];
+  corners(a, ax, ay);
+  corners(b, bx, by);
+  Slots st;
+  st.n = st.sum_x = st.sum_y = 0.0f;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) st.x[s] = st.y[s] = 0.0f;
+
+  // 16 edge-pair intersections, A's edge major
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float p1x = ax[i], p1y = ay[i];
+    const float d1x = ax[(i + 1) & 3] - p1x;
+    const float d1y = ay[(i + 1) & 3] - p1y;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float q1x = bx[j], q1y = by[j];
+      const float d2x = bx[(j + 1) & 3] - q1x;
+      const float d2y = by[(j + 1) & 3] - q1y;
+      const float denom = d1x * d2y - d1y * d2x;
+      // relative parallelism test (see the note at the top)
+      const float scale =
+          (fabsf(d1x) + fabsf(d1y)) * (fabsf(d2x) + fabsf(d2y));
+      const bool ok = fabsf(denom) > 1e-5f * scale + kEps;
+      const float sd = ok ? denom : 1.0f;
+      const float rx = q1x - p1x, ry = q1y - p1y;
+      const float t = (rx * d2y - ry * d2x) / sd;
+      const float u = (rx * d1y - ry * d1x) / sd;
+      const bool v = ok & (t >= -kTol) & (t <= kOnePlusTol) &
+                     (u >= -kTol) & (u <= kOnePlusTol);
+      add_candidate(st, v ? p1x + t * d1x : 0.0f, v ? p1y + t * d1y : 0.0f,
+                    v);
+    }
+  }
+  // A's corners inside B, then B's corners inside A
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool v = inside(ax[i], ay[i], bx, by);
+    add_candidate(st, v ? ax[i] + 0.0f * bx[0] : 0.0f,
+                  v ? ay[i] + 0.0f * by[0] : 0.0f, v);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool v = inside(bx[j], by[j], ax, ay);
+    add_candidate(st, v ? bx[j] + 0.0f * ax[0] : 0.0f,
+                  v ? by[j] + 0.0f * ay[0] : 0.0f, v);
+  }
+
+  // slots centered on the centroid of all valid candidates
+  const float inv_n = 1.0f / fmaxf(st.n, 1.0f);
+  const float cx = st.sum_x * inv_n, cy = st.sum_y * inv_n;
+  const float n_eff = fminf(st.n, 8.0f);
+  float crx[8], cry[8], key[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const bool filled = (float)s < st.n;
+    crx[s] = filled ? 0.0f + (st.x[s] - cx) : 0.0f;
+    cry[s] = filled ? 0.0f + (st.y[s] - cy) : 0.0f;
+    key[s] = (((float)s < n_eff) ? diamond_angle(cry[s], crx[s]) : 1e4f) +
+             (float)(s * 1e-6);
+  }
+  // rank sort: rank[s] = #{t : key[t] < key[s]}; sorted[r] = the slots of
+  // rank r, summed in slot order
+  int rank[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    int r = 0;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (t != s) r += key[t] < key[s] ? 1 : 0;
+    }
+    rank[s] = r;
+  }
+  float srx[8], sry[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float sx = 0.0f, sy = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const bool hit = rank[s] == r;
+      sx = sx + (hit ? crx[s] : 0.0f);
+      sy = sy + (hit ? cry[s] : 0.0f);
+    }
+    srx[r] = sx;
+    sry[r] = sy;
+  }
+  // masked shoelace over the first n_eff ranked slots, wrapping to slot 0
+  float area2 = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const bool wrap = ((float)r + 1.0f) >= n_eff;
+    const float nx = wrap ? srx[0] : srx[(r + 1) & 7];
+    const float ny = wrap ? sry[0] : sry[(r + 1) & 7];
+    const float crs = srx[r] * ny - sry[r] * nx;
+    area2 = area2 + (((float)r < n_eff) ? crs : 0.0f);
+  }
+  const float area = 0.5f * fabsf(area2);
+  return st.n >= 3.0f ? area : 0.0f;
+}
+
+// ---- the pair algos' common interface ----------------------------------
+
+template <int kAlgo>
+__device__ __forceinline__ float inter_area(const Box& a, const Box& b) {
+  if constexpr (kAlgo == kGreen2) {
+    return inter_area_green_bframe(a, b);
+  } else if constexpr (kAlgo == kCandidates) {
+    return inter_area_candidates(a, b);
+  } else {
+    return inter_area_green(a, b);
+  }
+}
+
+// IoU = inter / (A + B - inter + 1e-8), inter clamped to min(A, B).
+template <int kAlgo>
+__device__ __forceinline__ float iou(const Box& a, const Box& b) {
+  const float area_a = a.w * a.h;
+  const float area_b = b.w * b.h;
+  const float inter =
+      nan_min(inter_area<kAlgo>(a, b), nan_min(area_a, area_b));
+  return inter / (area_a + area_b - inter + kEps);
+}
+
 // Box idx of one image's (K, 5) boxes with its cos/sin; rows past k are
 // zero-area padding.
 __device__ __forceinline__ void load_box(const float* boxes, const int* cls,
@@ -160,13 +451,14 @@ __device__ __forceinline__ void load_box(const float* boxes, const int* cls,
 
 // kill = j > i && cls_i == cls_j && inter * (1 + thr) > thr * (A + B), with
 // inter clamped to min(A, B): row i (a, higher score) suppresses row j (b).
+template <int kAlgo>
 __device__ __forceinline__ bool kills(const Box& a, const Box& b, int i,
                                       int j, float thr, float one_plus_thr) {
   if (j <= i || a.cls != b.cls) return false;
   const float area_a = a.w * a.h;
   const float area_b = b.w * b.h;
   const float inter =
-      nan_min(inter_area_green(a, b), nan_min(area_a, area_b));
+      nan_min(inter_area<kAlgo>(a, b), nan_min(area_a, area_b));
   return inter * one_plus_thr > thr * (area_a + area_b);
 }
 

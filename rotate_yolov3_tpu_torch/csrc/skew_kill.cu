@@ -8,14 +8,16 @@
 // min(A, B) (the divide-free form of IoU > thr).
 //
 // Replaces the TPU kernel rotate_yolov3_tpu/ops/skew_iou_pallas.py::
-// skew_kill_matrix_pallas (body _kill_tile_kernel, algo "green"). The pair
-// predicate and the Green's-theorem intersection live in skew_green.cuh,
-// shared with kernel C (nms_greedy.cu); see the note there on -fmad=false,
-// cosf/sinf and NaN-propagating min/max.
+// skew_kill_matrix_pallas (body _kill_tile_kernel) with its three pair algos
+// ("green", "green2", "candidates"), one template instance each, chosen at
+// launch. The pair predicate and the intersections live in skew_green.cuh,
+// shared with kernels C (nms_greedy.cu) and E (skew_iou_matrix.cu); see the
+// note there on -fmad=false, cosf/sinf and NaN-propagating min/max.
 //
 // What bounds it on Hopper: arithmetic. Each live pair costs a few hundred
-// flops and eight divides; there are about K^2 / 2 live pairs per image and
-// only 5 floats of input per box. Design:
+// flops and eight divides ("green"; "candidates" about three times that);
+// there are about K^2 / 2 live pairs per image and only 5 floats of input
+// per box. Design:
 //   * one launch for the whole batch: grid (column tiles, row tiles, B), one
 //     thread per pair (i, j), 32 columns x 8 rows per block, so a warp stores
 //     32 neighbouring int8 entries of one row;
@@ -34,6 +36,7 @@ using skew_green::Box;
 constexpr int kTileCols = 32;
 constexpr int kTileRows = 8;
 
+template <int kAlgo>
 __global__ void skew_kill_kernel(const float* __restrict__ boxes,
                                  const int* __restrict__ cls,
                                  int8_t* __restrict__ out, int k, float thr,
@@ -67,7 +70,7 @@ __global__ void skew_kill_kernel(const float* __restrict__ boxes,
   if (i >= k || j >= k) return;
 
   out_b[(int64_t)i * k + j] =
-      skew_green::kills(rows[threadIdx.y], cols[threadIdx.x], i, j, thr,
+      skew_green::kills<kAlgo>(rows[threadIdx.y], cols[threadIdx.x], i, j, thr,
                         one_plus_thr)
           ? 1
           : 0;
@@ -76,16 +79,34 @@ __global__ void skew_kill_kernel(const float* __restrict__ boxes,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). cls may be null
-// (class-agnostic suppression).
+// (class-agnostic suppression); algo is skew_green::kGreen, kGreen2 or
+// kCandidates.
 extern "C" int skew_kill_launch(const void* boxes, const void* cls, void* out,
                                 int b, int k, float thr, float one_plus_thr,
-                                void* stream) {
+                                int algo, void* stream) {
   if (b == 0 || k == 0) return 0;
   const dim3 block(kTileCols, kTileRows);
   const dim3 grid((unsigned)((k + kTileCols - 1) / kTileCols),
                   (unsigned)((k + kTileRows - 1) / kTileRows), (unsigned)b);
-  skew_kill_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)boxes, (const int*)cls, (int8_t*)out, k, thr,
-      one_plus_thr);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* bx = (const float*)boxes;
+  const int* cl = (const int*)cls;
+  int8_t* o = (int8_t*)out;
+  switch (algo) {
+    case skew_green::kGreen:
+      skew_kill_kernel<skew_green::kGreen>
+          <<<grid, block, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      break;
+    case skew_green::kGreen2:
+      skew_kill_kernel<skew_green::kGreen2>
+          <<<grid, block, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      break;
+    case skew_green::kCandidates:
+      skew_kill_kernel<skew_green::kCandidates>
+          <<<grid, block, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

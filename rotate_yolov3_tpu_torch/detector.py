@@ -3,14 +3,14 @@
 Torch counterpart of ``rotate_yolov3_tpu/detector.py``: the BN-folded
 Darknet forward (1/255 folded into the first conv, head convs permuted to
 field-major channels), score-first top-k, the gathered decode (kernel A)
-and the two-stage rotated NMS (kernel B, then the greedy fixpoint), all on
-the ``device`` the detector was built for.
+and the two-stage rotated NMS (kernel B with pair algo ``iou_algo``, then
+the greedy fixpoint), or the NMS through an ``iou_matrix_fn`` hook (e.g.
+kernel E), all on the ``device`` the detector was built for.
 
 The reference's ``bake_params`` (closing the XLA program over the weights)
 has no PyTorch counterpart — PyTorch runs eagerly — and is dropped.
 Not ported yet, and refused with ``NotImplementedError``: ``devices > 1``
-(data parallelism), ``packed_stem=True``, ``iou_algo`` other than
-``"green"`` and ``iou_matrix_fn`` (see ROADMAP.md).
+(data parallelism) and ``packed_stem=True`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from .models.darknet import (ConvSpec, FusedDarknet, NetworkSpec,
 from .models.weights_io import load_weights_file
 from .models.yolo_head import decode_all, field_major_perm
 from .ops.rotated_nms import non_max_suppression_fused
+from .ops.skew_iou_cuda import check_algo
 
 
 def _device(device) -> torch.device:
@@ -57,11 +58,21 @@ class Detector:
         caps both pre-NMS candidates and output capacity.
       compute_dtype: dtype of the conv stack (torch.bfloat16 on the card in
         production; torch.float32 for parity runs). Decode and NMS stay f32.
+      iou_matrix_fn: NMS through a pairwise-IoU hook instead of the kill
+        mask: ``fn(boxes (N, 5), boxes (M, 5)) -> (N, M)``, called once per
+        image, cross-class pairs zeroed, greedy keep of ``IoU > nms_thres``.
+        ``ops.skew_iou_cuda.skew_iou_matrix_auto_nms`` (kernel E on the card,
+        the argsort oracle on the CPU) and ``skew_iou_matrix`` (kernel E)
+        are drop-ins.
       seed: seed of the random init used when no weights are given.
       approx_top_k: strided-bin top-k (``ops.topk.strided_topk``); None
         means strided on CUDA and exact on the CPU.
       field_major_heads: permute head-conv channels to field-major so the
         score pass reads contiguous slices (same results).
+      iou_algo: pair algo of the kill mask (kernel B): "green"
+        (Green's-theorem slab clipping), "green2" (the same in B's rotated
+        frame) or "candidates" (24 candidates, 8-slot rank sort). All exact;
+        an unknown name raises ValueError.
       device: "cuda" (default) or "cpu". CUDA without a card raises.
     """
 
@@ -82,14 +93,9 @@ class Detector:
             raise NotImplementedError(
                 "Detector(packed_stem=True) is not ported yet (ROADMAP "
                 "queue 1, item 13)")
-        if iou_algo != "green":
-            raise NotImplementedError(
-                f"Detector(iou_algo={iou_algo!r}): only the 'green' kill "
-                f"mask is ported (ROADMAP, TPU kernels to port)")
-        if iou_matrix_fn is not None:
-            raise NotImplementedError(
-                "Detector(iou_matrix_fn=...): the IoU-matrix hook "
-                "(skew_iou_matrix_pallas, kernel E) is not ported yet")
+        check_algo(iou_algo)
+        self.iou_algo = iou_algo
+        self.iou_matrix_fn = iou_matrix_fn
         self.device = _device(device)
         self.spec: NetworkSpec = build_network(
             parse_model_cfg(cfg_path), img_size=img_size)
@@ -170,8 +176,8 @@ class Detector:
         return non_max_suppression_fused(
             heads, self.spec.yolo_specs, conf_thres=self.conf_thres,
             nms_thres=self.nms_thres, max_det=self.max_det,
-            approx_top_k=self.approx_top_k,
-            field_major=self.field_major_heads)
+            iou_matrix_fn=self.iou_matrix_fn, approx_top_k=self.approx_top_k,
+            field_major=self.field_major_heads, iou_algo=self.iou_algo)
 
     @torch.inference_mode()
     def predict_raw(self, images) -> torch.Tensor:

@@ -10,10 +10,11 @@ and a greedy walk that reaches the fixpoint's unique solution.
 ``nms_greedy`` launches the hand-written CUDA kernel (``csrc/nms_greedy.cu``)
 on a CUDA tensor and uses the plain version, ``nms_greedy_ref``, only for a
 tensor on the CPU. K is capped at 1024 (``nms_greedy_fused_ok``), as in the
-reference; a larger K takes the two-stage path. The reference's other pair
-algos (``"green2"``, ``"candidates"``) are not ported yet, and its TPU
-tiling arguments (``block_n``, ``block_m``, ``interpret``) have no
-counterpart here.
+reference; a larger K takes the two-stage path. The pair algo is
+``"green"`` or ``"green2"``; like the reference, any other known algo
+(``"candidates"``) computes ``"green"``, and an unknown one raises
+``ValueError``. The reference's TPU tiling arguments (``block_n``,
+``block_m``, ``interpret``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -24,11 +25,21 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .skew_iou_cuda import skew_kill_matrix_ref
+from .skew_iou_cuda import check_algo, skew_kill_matrix_ref
 
 # words of 32 kill bits per row fit the 32 lanes of the kernel's greedy warp
 _MAX_K = 1024
 _MASK_DTYPES = ("float32", "bfloat16")
+# the kernel's pair algos; the reference computes "green" for any algo
+# other than "green2"
+_ALGOS = ("green", "green2")
+
+
+def kernel_algo(algo: str) -> str:
+    """The pair algo kernel C computes for ``algo``: ``"green2"`` for
+    itself, ``"green"`` for any other known algo, as in the reference."""
+    check_algo(algo)
+    return algo if algo in _ALGOS else "green"
 
 
 def nms_greedy_fused_ok(k: int) -> bool:
@@ -37,12 +48,7 @@ def nms_greedy_fused_ok(k: int) -> bool:
 
 
 def _check(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
-           valid: torch.Tensor, algo: str, mask_dtype: str) -> None:
-    if algo != "green":
-        raise NotImplementedError(
-            f"nms_greedy(algo={algo!r}): only the 'green' intersection is "
-            f"ported (ROADMAP, TPU kernels to port: skew_kill_matrix_pallas "
-            f"green2/candidates algos)")
+           valid: torch.Tensor, mask_dtype: str) -> None:
     if mask_dtype not in _MASK_DTYPES:
         raise ValueError(f"nms_greedy: mask_dtype must be one of "
                          f"{_MASK_DTYPES}, got {mask_dtype!r}")
@@ -66,19 +72,20 @@ def _check(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
 
 
 def nms_greedy_ref(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
-                   valid: torch.Tensor, iou_thr: float = 0.4) -> torch.Tensor:
-    """Plain PyTorch version: the plain kill mask, then the greedy
-    fixpoint."""
+                   valid: torch.Tensor, iou_thr: float = 0.4,
+                   algo: str = "green") -> torch.Tensor:
+    """Plain PyTorch version: the plain kill mask of the algo kernel C
+    computes (``kernel_algo``), then the greedy fixpoint."""
     from .rotated_nms import greedy_suppress_fixpoint_kill
 
-    kill = skew_kill_matrix_ref(boxes, cls_id, iou_thr)
+    kill = skew_kill_matrix_ref(boxes, cls_id, iou_thr, kernel_algo(algo))
     return greedy_suppress_fixpoint_kill(kill, valid)
 
 
 def _launcher():
     fn = _build.load("nms_greedy").nms_greedy_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -90,7 +97,9 @@ def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
     """Batched fused greedy rotated NMS: (B, K, 5) boxes -> (B, K) keep.
 
     Rows must be score-descending per image. ``cls_id`` enables class-aware
-    suppression; rows that are not ``valid`` never keep nor kill.
+    suppression; rows that are not ``valid`` never keep nor kill. ``algo``
+    is the pair algo (``kernel_algo``: ``"candidates"`` computes
+    ``"green"``).
     ``mask_dtype`` is the reference's choice of kill-scratch type (f32 or
     bf16, same keep in both); the kernel packs the mask into bits, so both
     give the same keep here too and the argument only gets checked.
@@ -98,10 +107,11 @@ def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     or raises.
     """
-    _check(boxes, cls_id, valid, algo, mask_dtype)
+    algo = kernel_algo(algo)
+    _check(boxes, cls_id, valid, mask_dtype)
     tensors = [boxes, valid] + ([] if cls_id is None else [cls_id])
     if all(t.device.type == "cpu" for t in tensors):
-        return nms_greedy_ref(boxes, cls_id, valid, iou_thr)
+        return nms_greedy_ref(boxes, cls_id, valid, iou_thr, algo)
     if boxes.device.type != "cuda" or any(t.device != boxes.device
                                           for t in tensors):
         raise ValueError("nms_greedy: boxes, cls_id and valid must lie on "
@@ -120,12 +130,15 @@ def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
             boxes.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
             valid.data_ptr(), mask.data_ptr(), done.data_ptr(),
             keep.data_ptr(), b, k, iou_thr, 1.0 + iou_thr,
-            torch.cuda.current_stream().cuda_stream)
+            _ALGOS.index(algo), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nms_greedy kernel launch failed: CUDA error "
                            f"{err}")
     nms_greedy.launches += 1
+    nms_greedy.algo_launches[algo] += 1
     return keep
 
 
+# launches in all, and per pair algo the kernel computed
 nms_greedy.launches = 0
+nms_greedy.algo_launches = dict.fromkeys(_ALGOS, 0)

@@ -156,11 +156,15 @@ def test_detector_slice_matches_jax(tmp_path, cfg, img_size):
 
 def test_detector_refuses_unported_options():
     cfg = os.path.join(ROOT, "cfg/yolov3-tiny-rotate-hrsc.cfg")
-    for kw in ({"devices": 2}, {"packed_stem": True}, {"iou_algo": "green2"},
-               {"iou_matrix_fn": skew_iou_matrix_green}):
+    for kw in ({"devices": 2}, {"packed_stem": True}):
         with pytest.raises(NotImplementedError):
             Detector(cfg, img_size=64, device="cpu", **kw)
-    det = Detector(cfg, img_size=64, device="cpu")
+    with pytest.raises(ValueError, match="algo"):
+        Detector(cfg, img_size=64, device="cpu", iou_algo="green3")
+    det = Detector(cfg, img_size=64, device="cpu", iou_algo="green2",
+                   iou_matrix_fn=skew_iou_matrix_green)
+    assert (det.iou_algo, det.iou_matrix_fn) == ("green2",
+                                                 skew_iou_matrix_green)
     with pytest.raises(ValueError, match="letterboxed"):
         det(np.zeros((1, 32, 32, 3), np.uint8))
 

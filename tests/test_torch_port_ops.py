@@ -353,15 +353,32 @@ def test_scale_coords_rotated_matches_jax():
 
 
 def test_unported_options_raise():
+    """Every pair algo option is ported: an unknown algo name raises
+    ValueError on each entry that takes one."""
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import non_max_suppression
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_iou_matrix
+
     heads = [torch.zeros(1, 2, 2, 126)]
 
     class _Spec:
-        na, no, num_classes = 18, 7, 1
+        na, no, num_classes, stride = 18, 7, 1, 32
+        anchors_wh, anchor_angles = ((10.0, 20.0),) * 3, (0.0,) * 6
 
-    for kw in ({"decode_kernel": True}, {"iou_algo": "green2"},
-               {"iou_matrix_fn": lambda a, b: a}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"iou_algo": "green3"}, {"iou_algo": "candidates ",
+                                        "decode_kernel": True}):
+        with pytest.raises(ValueError, match="algo"):
             non_max_suppression_fused(heads, [_Spec()], **kw)
+    with pytest.raises(ValueError, match="algo"):
+        non_max_suppression(torch.zeros(1, 4, 7), iou_algo="Green")
+    with pytest.raises(ValueError, match="algo"):
+        skew_kill_matrix(torch.zeros(1, 4, 5), algo="argsort")
+    with pytest.raises(ValueError, match="algo"):
+        skew_iou_matrix(torch.zeros(4, 5), torch.zeros(4, 5), algo="")
+    # the ported options run
+    for kw in ({"decode_kernel": True}, {"iou_algo": "green2"},
+               {"iou_matrix_fn": lambda a, b: a[:, :1] * b[:, 0]}):
+        dets, keep = non_max_suppression_fused(heads, [_Spec()], **kw)
+        assert dets.shape == (1, 512, 7) and keep.shape == (1, 512)
 
 
 def test_nms_greedy_refuses_unported_algo_and_large_k():
@@ -369,8 +386,11 @@ def test_nms_greedy_refuses_unported_algo_and_large_k():
                                                         nms_greedy_fused_ok)
 
     valid = torch.ones(1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nms_greedy(torch.zeros(1, 8, 5), None, valid, algo="green2")
+    with pytest.raises(ValueError, match="algo"):
+        nms_greedy(torch.zeros(1, 8, 5), None, valid, algo="green3")
+    for algo in ("green2", "candidates"):
+        assert torch.equal(nms_greedy(torch.zeros(1, 8, 5), None, valid,
+                                      algo=algo), valid)
     assert nms_greedy_fused_ok(1024) and not nms_greedy_fused_ok(1025)
     with pytest.raises(ValueError, match="1024"):
         nms_greedy(torch.zeros(1, 1025, 5), None,
@@ -389,7 +409,11 @@ def test_import_hygiene():
             "rotate_yolov3_tpu_torch.data.dota.device_tiles, "
             "rotate_yolov3_tpu_torch.data.dota.evaluation, "
             "rotate_yolov3_tpu_torch.data.dota.result_merge, "
-            "rotate_yolov3_tpu_torch.ops.nms_greedy;"
+            "rotate_yolov3_tpu_torch.ops.nms_greedy, "
+            "rotate_yolov3_tpu_torch.ops.rotated_nms, "
+            "rotate_yolov3_tpu_torch.ops.skew_iou, "
+            "rotate_yolov3_tpu_torch.ops.skew_iou_cuda, "
+            "rotate_yolov3_tpu_torch.ops.decode_rows;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'rotate_yolov3_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
