@@ -8,10 +8,14 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build every kernel of ``rotate_yolov3_tpu_torch/csrc/`` with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes (B = 8): the row gather (kernel A) bit for bit,
-     the skew-IoU kill mask (kernel B) on every pair more than 1e-4 from
-     the threshold; each kernel's time beside the plain version's;
+  3. each kernel against its plain PyTorch version on the card: the row
+     gather (kernel A) bit for bit at B = 8 and at the main path's B = 128,
+     K = 512 (there beside torch.gather and its bound); the skew-IoU kill
+     mask (kernel B) with each pair algo on every pair more than 1e-4 from
+     the threshold, at B = 8 and 128 with K = 128 and 512, on uniform,
+     clustered and all-overlap boxes, without and with 15 classes, and on
+     the degenerate boxes; per case its time, the near pairs P_near / P_all
+     (the pairs its near-pair test keeps), its bound and its share of it;
   4. the serving slice, ``Detector("cfg/yolov3-rotate-hrsc.cfg",
      device="cuda")`` at 608² with seeded random weights and conf 0.05, in
      bf16 and in f32 (TF32 off): both kernels' launch counters must grow,
@@ -19,7 +23,8 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      plain versions from the same boxes, and the f32 card result must agree
      with the plain-PyTorch path run on the CPU from the same head maps;
   5. img/s at B = 128 for max_det 128 and 512 in bf16, the stage split of
-     one such batch, and the B = 1 latency;
+     one such batch (with kernel B's device time and near-pair share on
+     the path's own boxes), and the B = 1 latency;
   6. the fused greedy NMS (kernel C) against kernel B + the greedy fixpoint
      (bit for bit) and against its plain version (on every image with no
      pair within 1e-4 of the threshold), at B = 8, K = 512 without and
@@ -66,8 +71,15 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      kernels, the plain versions and, in f32, the CPU path, on every image
      without a band pair. Then each option's per-call time at B = 128.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
-is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+Every kernel's bound (``bound_ms``, ``bound_by``) is the larger of the fp32
+operations its inputs need over ``FP32_PEAK`` and its bytes over
+``MEM_PEAK``; a pair's operations are counted in the SASS of probe kernels
+built from the kernels' own pair code (``count_pair_ops``), and phase 3
+also states the bound at the fp32 instruction rate (``instr_ms``), which
+code built without FMA contraction can reach. The line before the last is
+a JSON object ``{"kernels": [...]}`` (time, plain time, bound and
+library-call time of every kernel); the last is ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the
 package beside it, the script exits with an error and prints no result.
 """
 
@@ -109,6 +121,19 @@ IOU_TOL = 1e-5       # kernel E against its plain version, on IoU
 ARGSORT_TOL = 2e-3   # any algo against the argsort oracle (tests/test_pallas)
 # kernel D against its plain version: transcendentals may round apart
 DECODE_RTOL, DECODE_ATOL = 1e-5, 1e-4
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# fp32 outside the tensor cores, and HBM3. A kernel's bound_ms is the larger
+# of the operations its inputs need over the first and the bytes it must
+# move (each input read once, each output written once) over the second.
+FP32_PEAK = 67e12
+MEM_PEAK = 3.35e12
+# kernel B's layouts and shapes (phase 3): (B, K) of the checks at B_CHECK
+# and of the main path at B_BENCH, max_det 128 and 512
+KILL_LAYOUTS = ("uniform", "clustered", "all-overlap")
+KILL_SHAPES = ((B_CHECK, 128), (B_CHECK, 512), (B_BENCH, 128),
+               (B_BENCH, 512))
+KILL_CHUNK = 16      # images per call of a plain version at B = B_BENCH
 
 # every kernel of the port, each pair algo of B, C and E its own entry:
 # name -> (source, the TPU kernel's pallas_call it replaces)
@@ -160,6 +185,101 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(ops: float, nbytes: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of work of ``ops`` fp32 operations and
+    ``nbytes`` bytes of input and output."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / MEM_PEAK * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+# One probe kernel per (kind, pair algo): it decides one pair from records
+# in global memory, so its SASS holds exactly the instructions one pair
+# executes. kill_rec is kernel B (per-box quantities read from the record),
+# kill kernel C and iou kernel E (both form them per pair from a Box).
+PROBE_SRC = r"""
+#include "skew_green.cuh"
+using namespace skew_green;
+#define KILL(NAME, T, ALGO)                                                  \
+  extern "C" __global__ void NAME(const T* a, const T* b, float thr,        \
+                                  float opt, int* out) {                    \
+    out[threadIdx.x] =                                                      \
+        kill_predicate<ALGO>(a[threadIdx.x], b[threadIdx.x], thr, opt);     \
+  }
+#define IOU(NAME, ALGO)                                                      \
+  extern "C" __global__ void NAME(const Box* a, const Box* b, float* out) { \
+    out[threadIdx.x] = iou<ALGO>(a[threadIdx.x], b[threadIdx.x]);           \
+  }
+KILL(kill_rec_green, BoxRec, kGreen)
+KILL(kill_rec_green2, BoxRec, kGreen2)
+KILL(kill_rec_candidates, BoxRec, kCandidates)
+KILL(kill_green, Box, kGreen)
+KILL(kill_green2, Box, kGreen2)
+KILL(kill_candidates, Box, kCandidates)
+IOU(iou_green, kGreen)
+IOU(iou_green2, kGreen2)
+IOU(iou_candidates, kCandidates)
+"""
+# (kind, algo) -> (fp32 operations, fp32 instructions) of one pair
+PAIR_OPS: dict = {}
+
+
+def count_pair_ops(_build) -> None:
+    """Build the probes with kernel B's flags and count, in each probe's
+    SASS up to its EXIT (the path every pair takes; an IEEE divide's slow
+    path lies past it), the instructions whose opcode begins with F, and
+    MUFU: the fp32 instructions of one pair. Operations count an FFMA (the
+    divides' Newton steps use them) as two, as the fp32 peak does."""
+    import re
+
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, cubin = out_dir / "pair_probe.cu", out_dir / "pair_probe.cubin"
+    src.write_text(PROBE_SRC)
+    nvcc = _build.nvcc()
+    subprocess.run([nvcc, *_build.NVCC_FLAGS[:4],
+                    *_build.EXTRA_FLAGS["skew_kill"], "-cubin", "-I",
+                    str(_build.CSRC), "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(cubin)], check=True, capture_output=True, text=True,
+        timeout=120).stdout
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@\S+\s+)?([A-Z][A-Z0-9]*)")
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        flops = instr = 0
+        for line in part.splitlines():
+            m = opcode.search(line)
+            if not m:
+                continue
+            op = m.group(1)
+            if op == "EXIT":
+                break
+            if op.startswith("F") or op == "MUFU":
+                instr += 1
+                flops += 2 if op == "FFMA" else 1
+        kind, algo = name.rsplit("_", 1)
+        PAIR_OPS[(kind, algo)] = (flops, instr)
+    missing = {(k, a) for k in ("kill_rec", "kill", "iou")
+               for a in ("green", "green2", "candidates")} - set(PAIR_OPS)
+    if missing:
+        raise AssertionError(f"pair probes missing from the SASS: {missing}")
+
+
+def pair_ops(kind: str, algo: str) -> int:
+    """fp32 operations of one pair of probe ``kind`` by ``algo``."""
+    return PAIR_OPS[(kind, algo)][0]
+
+
+def instr_ms(instr: float) -> float:
+    """ms of ``instr`` fp32 instructions at one per lane per clock: half
+    the fp32 peak, which counts an FFMA as two operations. Code built with
+    -fmad=false executes its adds and multiplies one by one, so this is the
+    rate it can reach."""
+    return instr / (FP32_PEAK / 2) * 1e3
+
+
 def phase_build(_build) -> None:
     """One nvcc per kernel source, all started together."""
     def build(name):
@@ -169,29 +289,34 @@ def phase_build(_build) -> None:
 
     t0 = time.perf_counter()
     names = _build.kernel_names()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        probes = pool.submit(count_pair_ops, _build)
         times = dict(zip(names, pool.map(build, names)))
+        probes.result()
     for name, dt in times.items():
         report = _build.BUILD_LOG.get(name, (dt, "(already built)"))[1]
         ptxas = [l.strip() for l in report.splitlines()
                  if "registers" in l or "spill" in l]
         log(f"build {name}: {dt:.2f} s; " + " | ".join(ptxas))
     log(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
+    log("fp32 operations (instructions) of one pair, from the SASS of the "
+        "pair probes: " + ", ".join(f"{k} {a} {n} ({i})" for (k, a), (n, i)
+                                    in PAIR_OPS.items()))
 
 
 def phase_gather(torch, card, results) -> None:
     from rotate_yolov3_tpu_torch.ops.gather_rows import (gather_rows,
                                                          gather_rows_ref)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
     n, c = 7581, 126
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        cells = torch.randn((B_CHECK, n, c), generator=gen, device="cuda"
+        cells = torch.randn((B_CHECK, n, c), generator=gen, device=DEVICE
                             ).to(dtype)
         for k in (128, 512):
             idx = torch.randint(0, n, (B_CHECK, k), generator=gen,
-                                device="cuda", dtype=torch.int32)
+                                device=DEVICE, dtype=torch.int32)
             idx[:, :6] = torch.tensor([0, 0, n - 1, n - 1, -5, n + 9],
                                       dtype=torch.int32)
             got = gather_rows(cells, idx)
@@ -210,64 +335,189 @@ def phase_gather(torch, card, results) -> None:
                 f"K={k}: bit-equal; device kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms; per call {call:.4f} ms, plain {call_p:.4f}"
                 f" ms [{card}]")
-            if dtype == torch.bfloat16 and k == 512:
-                results["gather_rows"] = {"ms": ms, "plain_ms": plain}
-    results["gather_rows"]["max_abs_err"] = worst
+    # the main path's shape, max_det 512: B_BENCH images, bf16
+    b, k = B_BENCH, 512
+    cells = torch.randn((b, n, c), generator=gen, device=DEVICE
+                        ).to(torch.bfloat16)
+    idx = torch.randint(0, n, (b, k), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    got, ref = gather_rows(cells, idx), gather_rows_ref(cells, idx)
+    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(f"gather_rows B={b}: kernel differs from "
+                             f"torch.gather")
+    ms = device_ms(torch, lambda: gather_rows(cells, idx), reps=20)
+    plain = device_ms(torch, lambda: gather_rows_ref(cells, idx), reps=20)
+    # the library call: torch.gather on an index clamped beforehand
+    idx64 = idx.long().clamp(0, n - 1)[..., None].expand(-1, -1, c)
+    lib = device_ms(torch, lambda: torch.gather(cells, 1, idx64), reps=20)
+    # K rows of C bf16 read and written, K int32 indices read
+    bnd = bound(0, b * k * (2 * c * 2 + 4))
+    log(f"gather_rows bfloat16 B={b} N={n} C={c} K={k}: bit-equal; device "
+        f"kernel {ms:.4f} ms, plain (clamp + gather) {plain:.4f} ms, "
+        f"torch.gather on a clamped int64 index {lib:.4f} ms; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+        f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
+    results["gather_rows"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                              "max_abs_err": worst, **bnd}
 
 
-def _detection_boxes(torch, gen, k: int):
-    """B_CHECK images of k score-sorted boxes at detection scale within a
-    608-px image, the last eighth zero-area padding as on the serving
-    path."""
+def _detection_boxes(torch, gen, k: int, b=None):
+    """b (default B_CHECK) images of k score-sorted boxes at detection scale
+    within a 608-px image, the last eighth zero-area padding as on the
+    serving path."""
+    b = B_CHECK if b is None else b
     u = lambda lo, hi: lo + (hi - lo) * torch.rand(
-        (B_CHECK, k), generator=gen, device=DEVICE)
+        (b, k), generator=gen, device=DEVICE)
     boxes = torch.stack([u(0, 608), u(0, 608), u(10, 160), u(10, 160),
                          u(-3.1416, 3.1416)], dim=-1).contiguous()
     boxes[:, k - k // 8:] = 0.0
     return boxes
 
 
+def kill_layout(torch, gen, layout: str, b: int, k: int):
+    """b images of k boxes in one of KILL_LAYOUTS: "uniform" is
+    _detection_boxes; "clustered" is k / 16 objects (32 at K = 512) of 16
+    boxes jittered about each (centre ±4% of the side, sides ±10%, angle
+    ±0.1), rows in random order: the shape assumed for a trained
+    detector's top-K (no trained weights are in the repository);
+    "all-overlap" is k boxes jittered about one centre, where every pair
+    overlaps and nothing is culled."""
+    if layout == "uniform":
+        return _detection_boxes(torch, gen, k, b)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=DEVICE)
+    noise = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    if layout == "clustered":
+        n_obj = k // 16
+        obj = torch.stack([608 * rand(b, n_obj), 608 * rand(b, n_obj),
+                           10 + 150 * rand(b, n_obj), 10 + 150 * rand(b, n_obj),
+                           6.2832 * rand(b, n_obj) - 3.1416], dim=-1)
+        obj = obj.repeat_interleave(16, dim=1)
+        side = obj[..., 2:4].mean(-1)
+        boxes = torch.stack([obj[..., 0] + 0.04 * side * noise(b, k),
+                             obj[..., 1] + 0.04 * side * noise(b, k),
+                             obj[..., 2] * (1 + 0.1 * noise(b, k)),
+                             obj[..., 3] * (1 + 0.1 * noise(b, k)),
+                             obj[..., 4] + 0.1 * noise(b, k)], dim=-1)
+        order = rand(b, k).argsort(dim=1)
+        return torch.gather(boxes, 1, order[..., None].expand(-1, -1, 5)
+                            ).contiguous()
+    if layout == "all-overlap":
+        return torch.stack([304 + 4 * noise(b, k), 304 + 4 * noise(b, k),
+                            60 + 40 * rand(b, k), 60 + 40 * rand(b, k),
+                            6.2832 * rand(b, k) - 3.1416], dim=-1).contiguous()
+    raise ValueError(layout)
+
+
+def _in_chunks(torch, fn, *args):
+    """``fn`` over KILL_CHUNK images at a time, concatenated: the plain
+    versions at B = B_BENCH, whose broadcast intermediates would not fit the
+    card at once."""
+    b = args[0].shape[0]
+    return torch.cat([fn(*[None if a is None else a[s:s + KILL_CHUNK]
+                           for a in args])
+                      for s in range(0, b, KILL_CHUNK)])
+
+
+def live_pairs(torch, boxes, cls, thr: float = THR):
+    """(pairs j > i of the same class that kernel B's near-pair test keeps,
+    pairs j > i): P_near and P_all, counted with the plain mirror of the
+    test."""
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import pair_may_overlap
+
+    k = boxes.shape[1]
+    up = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
+
+    def count(bx, cl):
+        live = pair_may_overlap(bx[:, :, None], bx[:, None, :], thr) & up
+        if cl is not None:
+            live &= cl[:, :, None] == cl[:, None, :]
+        return live.flatten(1).sum(1)
+
+    return (int(_in_chunks(torch, count, boxes, cls).sum()),
+            boxes.shape[0] * k * (k - 1) // 2)
+
+
 def phase_kill(torch, card, results) -> None:
+    """Kernel B, each pair algo, on each layout and shape, without and with
+    15 classes: equal to its plain version on every pair outside the band;
+    its time beside the bound of the work these inputs need."""
     from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import (
-        skew_kill_matrix, skew_kill_matrix_ref)
+        ALGOS, skew_kill_matrix, skew_kill_matrix_ref)
     from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = 0.0
-    for k in (128, 512):
-        boxes = _detection_boxes(torch, gen, k)
-        cls = torch.randint(0, 15, (B_CHECK, k), generator=gen,
-                            device="cuda", dtype=torch.int32)
-        iou = skew_iou_green(boxes[:, :, None, :], boxes[:, None, :, :])
-        far = (iou - THR).abs() > BAND
-        for cls_id in (None, cls):
-            got = skew_kill_matrix(boxes, cls_id, iou_thr=THR)
-            ref = skew_kill_matrix_ref(boxes, cls_id, iou_thr=THR)
-            diff = (got != ref)
-            bad = int((diff & far).sum())
-            if bad:
-                raise AssertionError(f"skew_kill K={k}: {bad} pairs outside "
-                                     f"±{BAND} of thr differ from the plain "
-                                     f"version")
-            worst = max(worst, float((got.float() - ref.float())[far]
-                                     .abs().max()))
-            kills = int(got.sum())
-            if kills == 0:
-                raise AssertionError(f"skew_kill K={k}: no pair kills")
-            ms = device_ms(torch, lambda: skew_kill_matrix(boxes, cls_id,
-                                                           THR))
-            plain = device_ms(torch, lambda: skew_kill_matrix_ref(
-                boxes, cls_id, THR), reps=3)
-            tag = "cls" if cls_id is not None else "no-cls"
-            log(f"skew_kill {tag} B={B_CHECK} K={k} thr={THR}: equal on "
-                f"{int(far.sum())} pairs, {int((~far).sum())} excluded "
-                f"within ±{BAND}, {int(diff.sum())} differ inside the band, "
-                f"{kills} kills; device kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms "
-                f"[{card}]")
-            if k == 512 and cls_id is None:
-                results["skew_kill:green"] = {"ms": ms, "plain_ms": plain}
-    results["skew_kill:green"]["max_abs_err"] = worst
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    ops = {algo: PAIR_OPS[("kill_rec", algo)] for algo in ALGOS}
+    far_of = lambda bx: (skew_iou_green(bx[:, :, None, :], bx[:, None, :, :])
+                         - THR).abs() > BAND
+    worst = dict.fromkeys(ALGOS, 0.0)
+    for layout in KILL_LAYOUTS:
+        for b, k in KILL_SHAPES:
+            boxes = kill_layout(torch, gen, layout, b, k)
+            cls = torch.randint(0, 15, (b, k), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+            far = _in_chunks(torch, far_of, boxes)
+            for cls_id in (None, cls):
+                tag = "cls" if cls_id is not None else "no-cls"
+                p_near, p_all = live_pairs(torch, boxes, cls_id)
+                nbytes = b * k * (20 + (4 if cls_id is not None else 0) + k)
+                for algo in ALGOS:
+                    got = skew_kill_matrix(boxes, cls_id, THR, algo)
+                    ref = _in_chunks(torch, lambda bx, cl: skew_kill_matrix_ref(
+                        bx, cl, THR, algo), boxes, cls_id)
+                    diff = got != ref
+                    bad = int((diff & far).sum())
+                    if bad:
+                        raise AssertionError(
+                            f"skew_kill {algo} {layout} {tag} B={b} K={k}: "
+                            f"{bad} pairs outside ±{BAND} of thr differ from "
+                            f"the plain version")
+                    worst[algo] = max(worst[algo], _max_err(got[far],
+                                                            ref[far]))
+                    kills = int(got.sum())
+                    if kills == 0:
+                        raise AssertionError(f"skew_kill {algo} {layout} "
+                                             f"{tag} B={b} K={k}: no pair "
+                                             f"kills")
+                    ms = device_ms(torch, lambda: skew_kill_matrix(
+                        boxes, cls_id, THR, algo))
+                    flops, instr = ops[algo]
+                    bnd = bound(p_near * flops, nbytes)
+                    at_rate = max(instr_ms(p_near * instr),
+                                nbytes / MEM_PEAK * 1e3)
+                    log(f"skew_kill {algo} {layout} {tag} B={b} K={k} "
+                        f"thr={THR}: equal on {int(far.sum())} pairs, "
+                        f"{int((~far).sum())} excluded within ±{BAND}, "
+                        f"{int(diff.sum())} differ inside the band, {kills} "
+                        f"kills; device kernel {ms:.4f} ms; P_near/P_all "
+                        f"{p_near}/{p_all} = {p_near / p_all:.4f}; bound "
+                        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+                        f"{100 * bnd['bound_ms'] / ms:.1f}% of it; at the "
+                        f"fp32 instruction rate {at_rate:.5f} ms, "
+                        f"{100 * at_rate / ms:.1f}% of it [{card}]")
+                    if (layout, b, k, cls_id) == ("uniform", B_BENCH, 512,
+                                                  None):
+                        plain = device_ms(torch, lambda: _in_chunks(
+                            torch, lambda bx: skew_kill_matrix_ref(
+                                bx, None, THR, algo), boxes), reps=1)
+                        log(f"skew_kill {algo} uniform no-cls B={b} K={k}: "
+                            f"plain version {plain:.4f} ms ({b // KILL_CHUNK}"
+                            f" calls of {KILL_CHUNK} images) [{card}]")
+                        results[f"skew_kill:{algo}"] = {
+                            "ms": ms, "plain_ms": plain, "library_ms": None,
+                            **bnd}
+            del boxes, cls, far
+    # the degenerate boxes, each algo
+    deg = torch.tensor(DEGENERATE, dtype=torch.float32, device=DEVICE)[None]
+    for algo in ALGOS:
+        got = skew_kill_matrix(deg, None, THR, algo)
+        ref = skew_kill_matrix_ref(deg, None, THR, algo)
+        if bool(((got != ref) & far_of(deg)).any()):
+            raise AssertionError(f"skew_kill {algo}: degenerate boxes differ "
+                                 f"from the plain version")
+        log(f"skew_kill {algo} degenerate set: {int(got.sum())} kills, equal "
+            f"to the plain version outside ±{BAND} [{card}]")
+    for algo in ALGOS:
+        results[f"skew_kill:{algo}"]["max_abs_err"] = worst[algo]
 
 
 def _check_detections(torch, dets, mask, max_det: int) -> None:
@@ -502,9 +752,12 @@ def phase_bench(torch, card) -> None:
         }
         split = {k: time_ms(torch, f, reps=5, warmup=1)
                  for k, f in stages.items()}
+        p_near, p_all = live_pairs(torch, boxes, None)
+        kill_ms = device_ms(torch, lambda: skew_kill_matrix(boxes, None, THR))
         log(f"stages bf16 B={B_BENCH} max_det={max_det} (ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-            + f" [{card}]")
+            + f"; kill: device kernel {kill_ms:.4f} ms, P_near/P_all "
+            f"{p_near}/{p_all} = {p_near / p_all:.4f} [{card}]")
         if max_det == 128:
             log(f"top kernels of one B={B_BENCH} call (device time): "
                 + top_kernels(torch, lambda: det(x)) + f" [{card}]")
@@ -603,10 +856,18 @@ def phase_nms_greedy(torch, card, results) -> None:
             f"ms, plain {plain:.4f} ms; per call C {call:.4f} ms, B + "
             f"fixpoint {call_two:.4f} ms [{card}]")
         if (b, k, special) == (1, 1024, False):
-            results["nms_greedy:green"] = {"ms": ms, "plain_ms": plain,
-                                     "max_abs_err": float(
-                                         (keep[clean].float()
-                                          - ref[clean].float()).abs().max())}
+            # the near pairs' geometry, or boxes, classes, valid in and keep
+            # out; the walk's K dependent steps are not counted
+            p_near = live_pairs(torch, boxes, cls, thr)[0]
+            bnd = bound(p_near * pair_ops("kill", "green"), b * k * 26)
+            log(f"nms_greedy B={b} K={k}: {p_near} near pairs; bound "
+                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+                f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
+            results["nms_greedy:green"] = {
+                "ms": ms, "plain_ms": plain, "library_ms": None,
+                "max_abs_err": float((keep[clean].float()
+                                      - ref[clean].float()).abs().max()),
+                **bnd}
 
 
 def _dota_scene(seed: int = 6):
@@ -1014,8 +1275,17 @@ def phase_iou_matrix(torch, card, results) -> None:
             f"within {worst_arg:.3g} of the argsort oracle (limit "
             f"{ARGSORT_TOL}); 512x512 triangle: device kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms [{card}]")
+        # the near pairs above the diagonal, or boxes in and the f32 matrix
+        # out
+        p_near = live_pairs(torch, x[None], None)[0]
+        bnd = bound(p_near * pair_ops("iou", algo),
+                    2 * x.shape[0] * 20 + x.shape[0] ** 2 * 4)
+        log(f"skew_iou_matrix {algo} 512x512 triangle: {p_near} near pairs; "
+            f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
         results[f"skew_iou_matrix:{algo}"] = {
-            "ms": ms, "plain_ms": plain, "max_abs_err": worst}
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "max_abs_err": worst, **bnd}
 
 
 def phase_pair_algos(torch, card, results) -> None:
@@ -1062,8 +1332,6 @@ def phase_pair_algos(torch, card, results) -> None:
                 f"{int((~far).sum())} excluded within ±{BAND}, "
                 f"{int(diff.sum())} differ inside the band, {kills} kills; "
                 f"device kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
-            if cls_id is None:
-                results[f"skew_kill:{algo}"] = {"ms": ms, "plain_ms": plain}
         # the degenerate boxes through this algo, against green and plain
         d_got = skew_kill_matrix(deg, None, THR, algo)
         d_ref = skew_kill_matrix_ref(deg, None, THR, algo)
@@ -1072,7 +1340,8 @@ def phase_pair_algos(torch, card, results) -> None:
                               and torch.equal(d_got, d_green)):
             raise AssertionError(f"skew_kill {algo}: degenerate boxes differ "
                                  f"from the plain version or from green")
-        results[f"skew_kill:{algo}"]["max_abs_err"] = worst
+        entry = results[f"skew_kill:{algo}"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst)
         log(f"skew_kill {algo} degenerate set: {int(d_got.sum())} kills, "
             f"equal to the plain version and to green [{card}]")
 
@@ -1117,9 +1386,15 @@ def phase_pair_algos(torch, card, results) -> None:
             f"(green {green_ms:.4f}), kernel B green2 + fixpoint "
             f"{two_ms:.4f} ms, plain {plain:.4f} ms [{card}]")
         if not n_cls:
+            p_near = live_pairs(torch, nb, ncls)[0]
+            bnd = bound(p_near * pair_ops("kill", "green2"),
+                        B_CHECK * 512 * 26)
+            log(f"nms_greedy green2 no-cls B={B_CHECK} K=512: {p_near} near "
+                f"pairs; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}),"
+                f" {100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
             results["nms_greedy:green2"] = {
-                "ms": ms, "plain_ms": plain,
-                "max_abs_err": _max_err(keep[clean], ref[clean])}
+                "ms": ms, "plain_ms": plain, "library_ms": None,
+                "max_abs_err": _max_err(keep[clean], ref[clean]), **bnd}
 
 
 def _random_head_maps(torch, gen, specs, img: int, b: int, dtype):
@@ -1204,7 +1479,16 @@ def phase_decode(torch, card, results) -> None:
                 f"zero; device kernel D {ms:.4f} ms, plain {plain:.4f} ms, "
                 f"kernel A + decode {a_plus:.4f} ms [{card}]")
             if cfg == CFG and dtype == torch.bfloat16:
-                results["decode_rows"] = {"ms": ms, "plain_ms": plain}
+                # per row: 6 + nc fields read, index and valid read, 8 f32
+                # written; 30 + nc operations (two sigmoids, two clamped
+                # exps, a tanh, the scaling and masking, nc compares)
+                bnd = bound(b * k * (30 + nc),
+                            b * k * ((6 + nc) * 2 + 4 + 1 + 32))
+                log(f"decode_rows HRSC bf16 B={b} K={k}: bound "
+                    f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+                    f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
+                results["decode_rows"] = {"ms": ms, "plain_ms": plain,
+                                          "library_ms": None, **bnd}
     results["decode_rows"]["max_abs_err"] = worst
 
 
@@ -1505,7 +1789,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,9 +39,19 @@ constexpr float kOnePlusTol = (float)(1.0 + 1e-6);
 // pair algos, in the order of ALGOS in ops/skew_iou_cuda.py
 enum : int { kGreen = 0, kGreen2 = 1, kCandidates = 2 };
 
+// The near-pair test's per-box constants (see may_overlap below).
+constexpr float kRadRel = 1.0001f;       // circumradius x (1 + 1e-4)
+constexpr float kRadCoord = 1e-5f;       // + 1e-5 (|cx| + |cy|)
+constexpr float kRadAbs = 1e-5f;         // + 1e-5 px
+constexpr float kMinSide = 1e-3f;        // sides below: always the geometry
+constexpr float kMaxCoord = 1e18f;       // |cx|, |cy|, sides above: the same
+
+// One box as the pair code reads it: the fields, cos/sin of the angle, the
+// class, and the near-pair radius rad (may_overlap).
 struct Box {
   float cx, cy, w, h, ux, uy;
   int cls;
+  float rad;
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -65,6 +75,67 @@ __device__ __forceinline__ void corner_offsets(float w, float h, float ux,
     xs[k] = (sx * hw) * ux - (sy * hh) * uy;
     ys[k] = (sx * hw) * uy + (sy * hh) * ux;
   }
+}
+
+// A box with the quantities of the pair code that depend on it alone:
+// half-dims, corner offsets, edges 0 and 1 of the offsets and the area.
+// make_rec computes them once per box with the operations the pair code
+// would apply per pair, so every value it reads is bit-identical; the pair
+// code reads a Box or a BoxRec through the overloads below.
+struct BoxRec : Box {
+  float hw, hh;
+  float ox[4], oy[4];
+  float ex[2], ey[2];
+  float area;
+};
+
+__device__ __forceinline__ BoxRec make_rec(const Box& x) {
+  BoxRec r;
+  static_cast<Box&>(r) = x;
+  r.hw = x.w * 0.5f;
+  r.hh = x.h * 0.5f;
+  corner_offsets(x.w, x.h, x.ux, x.uy, r.ox, r.oy);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    r.ex[k] = r.ox[k + 1] - r.ox[k];
+    r.ey[k] = r.oy[k + 1] - r.oy[k];
+  }
+  r.area = x.w * x.h;
+  return r;
+}
+
+__device__ __forceinline__ float half_w(const Box& p) { return p.w * 0.5f; }
+__device__ __forceinline__ float half_w(const BoxRec& p) { return p.hw; }
+__device__ __forceinline__ float half_h(const Box& p) { return p.h * 0.5f; }
+__device__ __forceinline__ float half_h(const BoxRec& p) { return p.hh; }
+__device__ __forceinline__ float box_area(const Box& p) { return p.w * p.h; }
+__device__ __forceinline__ float box_area(const BoxRec& p) { return p.area; }
+
+__device__ __forceinline__ void offsets(const Box& p, float xs[4],
+                                        float ys[4]) {
+  corner_offsets(p.w, p.h, p.ux, p.uy, xs, ys);
+}
+__device__ __forceinline__ void offsets(const BoxRec& p, float xs[4],
+                                        float ys[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    xs[k] = p.ox[k];
+    ys[k] = p.oy[k];
+  }
+}
+
+// Edge k (0 or 1) of the corner offsets xs, ys of p: corner k+1 - corner k.
+__device__ __forceinline__ void edge(const Box&, const float xs[4],
+                                     const float ys[4], int k, float* ex,
+                                     float* ey) {
+  *ex = xs[k + 1] - xs[k];
+  *ey = ys[k + 1] - ys[k];
+}
+__device__ __forceinline__ void edge(const BoxRec& p, const float*,
+                                     const float*, int k, float* ex,
+                                     float* ey) {
+  *ex = p.ex[k];
+  *ey = p.ey[k];
 }
 
 // Signed distances (positive inside) of point p, relative to the rect
@@ -98,13 +169,14 @@ __device__ __forceinline__ float edge_contrib(float p0x, float p0y, float p1x,
   return hi > lo ? c : 0.0f;
 }
 
-__device__ inline float inter_area_green(const Box& a, const Box& b) {
+template <class T>
+__device__ inline float inter_area_green(const T& a, const T& b) {
   const float uax = a.ux, uay = a.uy, ubx = b.ux, uby = b.uy;
-  const float ahw = a.w * 0.5f, ahh = a.h * 0.5f;
-  const float bhw = b.w * 0.5f, bhh = b.h * 0.5f;
+  const float ahw = half_w(a), ahh = half_h(a);
+  const float bhw = half_w(b), bhh = half_h(b);
   float arx[4], ary[4], brx[4], bry[4];
-  corner_offsets(a.w, a.h, uax, uay, arx, ary);
-  corner_offsets(b.w, b.h, ubx, uby, brx, bry);
+  offsets(a, arx, ary);
+  offsets(b, brx, bry);
   const float ox = a.cx - b.cx, oy = a.cy - b.cy;
 
   const float sig =
@@ -127,12 +199,13 @@ __device__ inline float inter_area_green(const Box& a, const Box& b) {
   float ra[4][2], rb[4][2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const float eax = arx[k + 1] - arx[k], eay = ary[k + 1] - ary[k];
+    float eax, eay, ebx, eby;
+    edge(a, arx, ary, k, &eax, &eay);
     ra[k][0] = 1.0f / (eax * ubx + eay * uby);
     ra[k][1] = 1.0f / (-eax * uby + eay * ubx);
     ra[k + 2][0] = -ra[k][0];
     ra[k + 2][1] = -ra[k][1];
-    const float ebx = brx[k + 1] - brx[k], eby = bry[k + 1] - bry[k];
+    edge(b, brx, bry, k, &ebx, &eby);
     rb[k][0] = 1.0f / (ebx * uax + eby * uay);
     rb[k][1] = 1.0f / (-ebx * uay + eby * uax);
     rb[k + 2][0] = -rb[k][0];
@@ -173,7 +246,8 @@ __device__ __forceinline__ float edge_contrib_cross(float cross,
 // inter_area_green in B's rotated frame: B's slabs are axis-aligned, its
 // corners (+-bhw, +-bhh), every clip reciprocal 1/(2m) of a half-dim x
 // cos/sin product, and each of B's edges has the cross product 2*bhw*bhh.
-__device__ inline float inter_area_green_bframe(const Box& a, const Box& b) {
+template <class T>
+__device__ inline float inter_area_green_bframe(const T& a, const T& b) {
   const float uax = a.ux, uay = a.uy, ubx = b.ux, uby = b.uy;
   const float ca = uax * ubx + uay * uby;  // cos(theta_a - theta_b)
   const float sa = uay * ubx - uax * uby;  // sin(theta_a - theta_b)
@@ -181,8 +255,8 @@ __device__ inline float inter_area_green_bframe(const Box& a, const Box& b) {
   const float os = ox * ubx + oy * uby;    // A center in B frame
   const float ot = -ox * uby + oy * ubx;
 
-  const float ahw = a.w * 0.5f, ahh = a.h * 0.5f;
-  const float bhw = b.w * 0.5f, bhh = b.h * 0.5f;
+  const float ahw = half_w(a), ahh = half_h(a);
+  const float bhw = half_w(b), bhh = half_h(b);
   const float sig =
       kSigRel * (0.5f * (a.w + a.h + b.w + b.h) + fabsf(ox) + fabsf(oy));
   const float bhw_r = bhw + sig, bhh_r = bhh + sig;  // B expanded (relaxed)
@@ -410,8 +484,9 @@ __device__ inline float inter_area_candidates(const Box& a, const Box& b) {
 
 // ---- the pair algos' common interface ----------------------------------
 
-template <int kAlgo>
-__device__ __forceinline__ float inter_area(const Box& a, const Box& b) {
+// T is Box, or BoxRec with the per-box quantities computed once (kernel B).
+template <int kAlgo, class T>
+__device__ __forceinline__ float inter_area(const T& a, const T& b) {
   if constexpr (kAlgo == kGreen2) {
     return inter_area_green_bframe(a, b);
   } else if constexpr (kAlgo == kCandidates) {
@@ -422,17 +497,77 @@ __device__ __forceinline__ float inter_area(const Box& a, const Box& b) {
 }
 
 // IoU = inter / (A + B - inter + 1e-8), inter clamped to min(A, B).
-template <int kAlgo>
-__device__ __forceinline__ float iou(const Box& a, const Box& b) {
-  const float area_a = a.w * a.h;
-  const float area_b = b.w * b.h;
+template <int kAlgo, class T>
+__device__ __forceinline__ float iou(const T& a, const T& b) {
+  const float area_a = box_area(a);
+  const float area_b = box_area(b);
   const float inter =
       nan_min(inter_area<kAlgo>(a, b), nan_min(area_a, area_b));
   return inter / (area_a + area_b - inter + kEps);
 }
 
-// Box idx of one image's (K, 5) boxes with its cos/sin; rows past k are
-// zero-area padding.
+// ---- the near-pair test ---------------------------------------------------
+//
+// may_overlap(a, b) is false only for a pair whose kill is false whatever
+// the pair algo computes, given thr >= 0 (the caller checks thr). Each box
+// carries rad, and the pair is skipped iff R = rad_a + rad_b < 0 or
+// dx^2 + dy^2 > R^2 (both false for a NaN R or d2):
+//   * rad = -inf: a zero-area box (w * h == 0, every field finite). R is
+//     -inf unless the other box has rad = +inf (then NaN: kept). Its pair
+//     never kills: inter = min(I, min(0, B)) is 0, B (when B < 0) or NaN, so
+//     inter * (1 + thr) > thr * (0 + B) is false for thr >= 0 (0 > thr*B
+//     with B >= 0; B*(1+thr) > thr*B with B < 0, monotone rounding; NaN).
+//     This covers the padding rows and the rows the decode zeroed.
+//   * rad = +inf: a box with a NaN or inf field, a side below kMinSide or a
+//     coordinate or side above kMaxCoord. Its pairs always take the
+//     geometry (R is +inf or NaN).
+//   * otherwise rad = r * 1.0001 + 1e-5 (|cx| + |cy|) + 1e-5, with r =
+//     sqrt(hw^2 + hh^2) the circumradius.
+// Two boxes of finite rad are skipped iff d2 > R^2, and their exact
+// intersection is then 0 in every algo:
+//   * green / green2 clip A's edges to B grown by sig and B's edges to A
+//     shrunk by sig, sig = 1e-5 (0.5 (wa + ha + wb + hb) + |ox| + |oy|) <=
+//     sqrt2 1e-5 (R0 + d) with R0 = ra + rb (w + h <= sqrt2 * 2r, |ox| +
+//     |oy| <= sqrt2 d). Grown B lies within rb + sqrt2 sig of its centre,
+//     and shrunk A within A, so the clipped windows are empty unless d <=
+//     R0 + 2e-5 (R0 + d). Skipping needs d > 1.0001 R0, so R0 < d / 1.0001
+//     and R0 + 2e-5 (R0 + d) < d (1 - 6e-5): a gap of 6e-5 d, hundreds of
+//     f32 ulps of every offset the frame code forms (all of order d).
+//   * candidates accept a point within 1e-6 of an edge's parameter range
+//     (at most 2e-6 r of the edge) and a corner within tol / |e| =
+//     1e-6 sqrt(|e|^2 + 1e-8) / |e| <= 1.005e-6 px of a side of length
+//     |e| >= kMinSide; fewer than 3 accepted candidates give area 0. The
+//     corners are formed in absolute coordinates, off by a few ulps of
+//     |cx| + |cy|, which the 1e-5 (|cx| + |cy|) term covers; the 1e-5 px
+//     covers the absolute tolerance. Sides below kMinSide would let tol/|e|
+//     grow without bound (1e-10 / |e|), hence rad = +inf there.
+//   * d2 and R^2 are each off by a few ulps (relative 1e-6 at most), far
+//     inside the 1e-4 r slack; kMaxCoord keeps both finite.
+// For thr < 0 or NaN a pair with inter 0 can kill (0 > thr * (A + B)), so
+// the caller applies the test only when thr >= 0.
+__device__ __forceinline__ float near_radius(float cx, float cy, float w,
+                                             float h, float theta) {
+  const bool finite = isfinite(cx) && isfinite(cy) && isfinite(w) &&
+                      isfinite(h) && isfinite(theta);
+  if (finite && w * h == 0.0f) return -__int_as_float(0x7f800000);  // -inf
+  const bool plain = finite && w >= kMinSide && h >= kMinSide &&
+                     w <= kMaxCoord && h <= kMaxCoord &&
+                     fabsf(cx) <= kMaxCoord && fabsf(cy) <= kMaxCoord;
+  if (!plain) return __int_as_float(0x7f800000);   // +inf
+  const float hw = w * 0.5f, hh = h * 0.5f;
+  const float r = sqrtf(hw * hw + hh * hh);
+  return r * kRadRel + kRadCoord * (fabsf(cx) + fabsf(cy)) + kRadAbs;
+}
+
+__device__ __forceinline__ bool may_overlap(const Box& a, const Box& b) {
+  const float dx = a.cx - b.cx, dy = a.cy - b.cy;
+  const float d2 = dx * dx + dy * dy;
+  const float r = a.rad + b.rad;
+  return !(r < 0.0f || d2 > r * r);
+}
+
+// Box idx of one image's (K, 5) boxes with its cos/sin and near-pair
+// radius; rows past k are zero-area padding.
 __device__ __forceinline__ void load_box(const float* boxes, const int* cls,
                                          int idx, int k, Box* out) {
   if (idx < k) {
@@ -444,22 +579,41 @@ __device__ __forceinline__ void load_box(const float* boxes, const int* cls,
     out->ux = cosf(p[4]);
     out->uy = sinf(p[4]);
     out->cls = cls ? cls[idx] : 0;
+    out->rad = near_radius(p[0], p[1], p[2], p[3], p[4]);
   } else {
-    *out = Box{0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0};
+    *out = Box{0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0,
+               -__int_as_float(0x7f800000)};
   }
 }
 
-// kill = j > i && cls_i == cls_j && inter * (1 + thr) > thr * (A + B), with
-// inter clamped to min(A, B): row i (a, higher score) suppresses row j (b).
-template <int kAlgo>
-__device__ __forceinline__ bool kills(const Box& a, const Box& b, int i,
-                                      int j, float thr, float one_plus_thr) {
+// Does pair (i, j) need the geometry? j > i, the same class and, for
+// thr >= 0, may_overlap. Every other pair has kill = 0.
+__device__ __forceinline__ bool live_pair(const Box& a, const Box& b, int i,
+                                          int j, float thr) {
   if (j <= i || a.cls != b.cls) return false;
-  const float area_a = a.w * a.h;
-  const float area_b = b.w * b.h;
+  return !(thr >= 0.0f) || may_overlap(a, b);
+}
+
+// inter * (1 + thr) > thr * (A + B), with inter clamped to min(A, B).
+template <int kAlgo, class T>
+__device__ __forceinline__ bool kill_predicate(const T& a, const T& b,
+                                               float thr,
+                                               float one_plus_thr) {
+  const float area_a = box_area(a);
+  const float area_b = box_area(b);
   const float inter =
       nan_min(inter_area<kAlgo>(a, b), nan_min(area_a, area_b));
   return inter * one_plus_thr > thr * (area_a + area_b);
+}
+
+// kill = j > i && cls_i == cls_j && inter * (1 + thr) > thr * (A + B): row
+// i (a, higher score) suppresses row j (b). Pairs that live_pair rejects
+// skip the geometry; their kill is 0 either way.
+template <int kAlgo>
+__device__ __forceinline__ bool kills(const Box& a, const Box& b, int i,
+                                      int j, float thr, float one_plus_thr) {
+  return live_pair(a, b, i, j, thr) &&
+         kill_predicate<kAlgo>(a, b, thr, one_plus_thr);
 }
 
 }  // namespace skew_green

@@ -10,70 +10,252 @@
 // Replaces the TPU kernel rotate_yolov3_tpu/ops/skew_iou_pallas.py::
 // skew_kill_matrix_pallas (body _kill_tile_kernel) with its three pair algos
 // ("green", "green2", "candidates"), one template instance each, chosen at
-// launch. The pair predicate and the intersections live in skew_green.cuh,
-// shared with kernels C (nms_greedy.cu) and E (skew_iou_matrix.cu); see the
-// note there on -fmad=false, cosf/sinf and NaN-propagating min/max.
+// launch. The pair predicate, the intersections and the near-pair test live
+// in skew_green.cuh, shared with kernels C (nms_greedy.cu) and E
+// (skew_iou_matrix.cu).
 //
-// What bounds it on Hopper: arithmetic. Each live pair costs a few hundred
-// flops and eight divides ("green"; "candidates" about three times that);
-// there are about K^2 / 2 live pairs per image and only 5 floats of input
-// per box. Design:
-//   * one launch for the whole batch: grid (column tiles, row tiles, B), one
-//     thread per pair (i, j), 32 columns x 8 rows per block, so a warp stores
-//     32 neighbouring int8 entries of one row;
-//   * the block's 8 row boxes and 32 column boxes, with their cos/sin, are
-//     loaded once into shared memory, so each pair reads no device memory;
-//   * a tile whose largest column is <= its smallest row lies at or below the
-//     diagonal and only writes zeros (as the TPU kernel does), and pairs with
-//     j <= i or different classes skip the geometry.
+// What bounds it on Hopper: the geometry of the pairs that can intersect,
+// or the int8 output. A pair executes about 440 fp32 instructions with eight
+// IEEE divides ("green", counted in the SASS; "candidates" about five times
+// as many), but on detection boxes only a small share of the pairs j > i
+// lie close enough to intersect: two boxes whose circumcircles (plus a
+// margin) are apart have an intersection of exactly 0 and, for thr >= 0,
+// cannot kill (may_overlap in skew_green.cuh, with the derivation of the
+// margin). So the bound is max(near pairs x instructions per pair / fp32
+// instruction rate, B K^2 bytes of output / memory rate); on uniform or
+// clustered boxes at K = 512 both are tens of microseconds at B = 128. Culling per thread would not help: a warp
+// holds 32 pairs, and most warps hold at least one near pair, so an early
+// exit leaves the warp paying the full geometry. The design compacts the
+// near pairs instead:
+//   * one launch for the whole batch; a block of 256 threads owns a tile of
+//     64 rows x 64 columns of one image (16 pairs per thread), and its 128
+//     box records are computed once into shared memory: the fields,
+//     cos/sin, class and near-pair radius, and the quantities of the pair
+//     code that depend on one box alone (half-dims, corner offsets, two
+//     edges, area; skew_green::BoxRec), so step 2 reads them instead of
+//     forming them per pair. Small batches take shorter tiles, chosen by
+//     the live 64-row tiles per SM (n64 = B * T (T + 1) / 2 for T = K / 64
+//     column tiles, the SM count read from the device): 16 rows x 64
+//     columns below one per SM (on an H100 B = 8 at K = 128), 32 rows
+//     below four (B = 8 at K = 512, B = 128 at K = 128). More, smaller
+//     blocks spread a dense image (every pair near) over the card; larger
+//     tiles read fewer box records per pair, which sparse images need.
+//     On the H100 the shape-only rule cannot see the density, so it costs
+//     up to 1.33x against the best height on a sparse case and 1.09x on a
+//     dense one at those shapes (PERF.md, tools/kill_ab.py);
+//   * step 1: each warp tests 32 neighbouring pairs of one row at a time
+//     (j > i, class, may_overlap: ~15 operations) and appends the survivors
+//     to a pair list in shared memory (ballot, popc prefix, one shared
+//     atomic per warp); the block also zeroes its int8 tile in shared
+//     memory;
+//   * step 2: all 256 threads drain the list densely through the geometry
+//     and set the tile's bytes, so no lane idles on a culled pair;
+//   * step 3: the 64 x 64 tile leaves as one 16-byte store per thread
+//     (rows of 64 bytes, coalesced), byte stores where K is not a multiple
+//     of 16 or the tile overhangs K;
+//   * a tile whose largest column is <= its smallest row lies at or below
+//     the diagonal: it reads no boxes and writes its zeros as 16-byte stores.
+// Every source that includes skew_green.cuh is built with -fmad=false:
+// exactness relies on one rounding per operation (the note at the top of
+// skew_green.cuh), so the kernel gains by doing fewer operations, not by
+// contracting them.
 
 #include "skew_green.cuh"
 
 namespace {
 
 using skew_green::Box;
+using skew_green::BoxRec;
 
-constexpr int kTileCols = 32;
-constexpr int kTileRows = 8;
+constexpr int kCols = 64;              // columns of a block's tile
+constexpr int kThreads = 256;
+constexpr int kRowsPerPass = kThreads / kCols;   // 4 rows tested per pass
+constexpr int kChunks = kCols / 16;    // 16-byte chunks per tile row
+constexpr unsigned kFull = 0xffffffffu;
+// fewer live 64-row tiles than these many per SM take 16- or 32-row tiles
+constexpr int64_t kShortPerSm = 1, kHalfPerSm = 4;
 
-template <int kAlgo>
-__global__ void skew_kill_kernel(const float* __restrict__ boxes,
-                                 const int* __restrict__ cls,
-                                 int8_t* __restrict__ out, int k, float thr,
-                                 float one_plus_thr) {
+// A tile's box records field by field, so that lanes reading different
+// boxes hit different shared-memory banks.
+template <int N>
+struct TileBoxes {
+  float cx[N], cy[N], w[N], h[N], ux[N], uy[N];
+  int cls[N];
+  float rad[N];
+  float hw[N], hh[N], ox[4][N], oy[4][N], ex[2][N], ey[2][N], area[N];
+
+  __device__ __forceinline__ void put(int t, const BoxRec& x) {
+    cx[t] = x.cx;
+    cy[t] = x.cy;
+    w[t] = x.w;
+    h[t] = x.h;
+    ux[t] = x.ux;
+    uy[t] = x.uy;
+    cls[t] = x.cls;
+    rad[t] = x.rad;
+    hw[t] = x.hw;
+    hh[t] = x.hh;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ox[c][t] = x.ox[c];
+      oy[c][t] = x.oy[c];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ex[e][t] = x.ex[e];
+      ey[e][t] = x.ey[e];
+    }
+    area[t] = x.area;
+  }
+  // the fields the near-pair test reads
+  __device__ __forceinline__ Box get_box(int t) const {
+    return Box{cx[t], cy[t], w[t], h[t], ux[t], uy[t], cls[t], rad[t]};
+  }
+  __device__ __forceinline__ BoxRec get(int t) const {
+    BoxRec r;
+    static_cast<Box&>(r) = get_box(t);
+    r.hw = hw[t];
+    r.hh = hh[t];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      r.ox[c] = ox[c][t];
+      r.oy[c] = oy[c][t];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      r.ex[e] = ex[e][t];
+      r.ey[e] = ey[e][t];
+    }
+    r.area = area[t];
+    return r;
+  }
+};
+
+// Thread tid's 16-byte chunk of a tile of kRows rows: row tid / 4, bytes
+// 16 (tid % 4).. Vector store where the chunk is whole and aligned (k % 16
+// == 0), else byte stores of the columns below k.
+template <int kRows>
+__device__ __forceinline__ void store_chunk(int8_t* out_b, int k, int row0,
+                                            int col0, int tid,
+                                            const int8_t* src) {
+  if (tid >= kRows * kChunks) return;
+  const int r = tid / kChunks;
+  const int c = (tid % kChunks) * 16;
+  const int i = row0 + r, j = col0 + c;
+  if (i >= k || j >= k) return;
+  int8_t* dst = out_b + (int64_t)i * k + j;
+  if ((k & 15) == 0 && j + 16 <= k) {
+    *reinterpret_cast<int4*>(dst) =
+        src ? *reinterpret_cast<const int4*>(src + r * kCols + c)
+            : make_int4(0, 0, 0, 0);
+  } else {
+    for (int t = 0; t < 16 && j + t < k; ++t) {
+      dst[t] = src ? src[r * kCols + c + t] : (int8_t)0;
+    }
+  }
+}
+
+template <int kAlgo, int kRows>
+__global__ void __launch_bounds__(kThreads)
+    skew_kill_kernel(const float* __restrict__ boxes,
+                     const int* __restrict__ cls, int8_t* __restrict__ out,
+                     int k, float thr, float one_plus_thr) {
+  static_assert(kRows % kRowsPerPass == 0 && kRows * kChunks <= kThreads,
+                "a pass covers 4 rows; one 16-byte chunk per thread");
   const int b = blockIdx.z;
-  const int row0 = blockIdx.y * kTileRows;
-  const int col0 = blockIdx.x * kTileCols;
-  const int i = row0 + threadIdx.y;
-  const int j = col0 + threadIdx.x;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * kCols;
+  const int tid = threadIdx.x;
   int8_t* out_b = out + (int64_t)b * k * k;
 
-  // strict upper triangle: the tile is dead unless its max column exceeds
-  // its min row (block-uniform branch)
-  if (col0 + kTileCols - 1 <= row0) {
-    if (i < k && j < k) out_b[(int64_t)i * k + j] = 0;
+  // at or below the diagonal: zeros only (block-uniform branch)
+  if (col0 + kCols - 1 <= row0) {
+    store_chunk<kRows>(out_b, k, row0, col0, tid, nullptr);
     return;
   }
 
-  __shared__ Box rows[kTileRows];
-  __shared__ Box cols[kTileCols];
+  __shared__ TileBoxes<kRows> rows;
+  __shared__ TileBoxes<kCols> cols;
+  __shared__ __align__(16) int8_t tile[kRows * kCols];
+  __shared__ uint16_t pairs[kRows * kCols];   // (r << 6) | c
+  __shared__ int n_pairs;
+
   const float* boxes_b = boxes + (int64_t)b * k * 5;
   const int* cls_b = cls ? cls + (int64_t)b * k : nullptr;
-  const int tid = threadIdx.y * kTileCols + threadIdx.x;
-  if (tid < kTileCols) {
-    skew_green::load_box(boxes_b, cls_b, col0 + tid, k, &cols[tid]);
-  } else if (tid < kTileCols + kTileRows) {
-    skew_green::load_box(boxes_b, cls_b, row0 + tid - kTileCols, k,
-                         &rows[tid - kTileCols]);
+  if (tid < kCols + kRows) {
+    Box x;
+    if (tid < kCols) {
+      skew_green::load_box(boxes_b, cls_b, col0 + tid, k, &x);
+      cols.put(tid, skew_green::make_rec(x));
+    } else {
+      skew_green::load_box(boxes_b, cls_b, row0 + tid - kCols, k, &x);
+      rows.put(tid - kCols, skew_green::make_rec(x));
+    }
+  }
+  if (tid < kRows * kCols / 16) {
+    reinterpret_cast<int4*>(tile)[tid] = make_int4(0, 0, 0, 0);
+  }
+  if (tid == 0) n_pairs = 0;
+  __syncthreads();
+
+  // step 1: each warp tests 32 columns of one row per pass
+  const int lane = tid & 31;
+  const int c = (tid / 32 % 2) * 32 + lane;   // this thread's column
+  const int j = col0 + c;
+  const Box col = cols.get_box(c);
+  const unsigned lanes_below = (1u << lane) - 1u;
+  for (int r = tid / kCols; r < kRows; r += kRowsPerPass) {
+    const int i = row0 + r;
+    const bool live = i < k && j < k &&
+                      skew_green::live_pair(rows.get_box(r), col, i, j, thr);
+    const unsigned m = __ballot_sync(kFull, live);
+    if (m == 0u) continue;                     // warp-uniform
+    int base = 0;
+    if (lane == 0) base = atomicAdd(&n_pairs, __popc(m));
+    base = __shfl_sync(kFull, base, 0);
+    if (live) {
+      pairs[base + __popc(m & lanes_below)] = (uint16_t)((r << 6) | c);
+    }
   }
   __syncthreads();
-  if (i >= k || j >= k) return;
 
-  out_b[(int64_t)i * k + j] =
-      skew_green::kills<kAlgo>(rows[threadIdx.y], cols[threadIdx.x], i, j, thr,
-                        one_plus_thr)
-          ? 1
-          : 0;
+  // step 2: the near pairs, densely
+  const int n = n_pairs;
+  for (int e = tid; e < n; e += kThreads) {
+    const int p = pairs[e];
+    const int pr = p >> 6, pc = p & (kCols - 1);
+    if (skew_green::kill_predicate<kAlgo>(rows.get(pr), cols.get(pc), thr,
+                                          one_plus_thr)) {
+      tile[pr * kCols + pc] = 1;
+    }
+  }
+  __syncthreads();
+
+  // step 3: the tile to device memory
+  store_chunk<kRows>(out_b, k, row0, col0, tid, tile);
+}
+
+template <int kAlgo, int kRows>
+cudaError_t launch(const float* bx, const int* cl, int8_t* o, int b, int k,
+                   float thr, float one_plus_thr, cudaStream_t s) {
+  const dim3 grid((unsigned)((k + kCols - 1) / kCols),
+                  (unsigned)((k + kRows - 1) / kRows), (unsigned)b);
+  skew_kill_kernel<kAlgo, kRows>
+      <<<grid, kThreads, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+  return cudaGetLastError();
+}
+
+template <int kAlgo>
+cudaError_t launch_rows(const float* bx, const int* cl, int8_t* o, int b,
+                        int k, float thr, float one_plus_thr, int rows,
+                        cudaStream_t s) {
+  if (rows == 16) {
+    return launch<kAlgo, 16>(bx, cl, o, b, k, thr, one_plus_thr, s);
+  }
+  if (rows == 32) {
+    return launch<kAlgo, 32>(bx, cl, o, b, k, thr, one_plus_thr, s);
+  }
+  return launch<kAlgo, 64>(bx, cl, o, b, k, thr, one_plus_thr, s);
 }
 
 }  // namespace
@@ -85,28 +267,36 @@ extern "C" int skew_kill_launch(const void* boxes, const void* cls, void* out,
                                 int b, int k, float thr, float one_plus_thr,
                                 int algo, void* stream) {
   if (b == 0 || k == 0) return 0;
-  const dim3 block(kTileCols, kTileRows);
-  const dim3 grid((unsigned)((k + kTileCols - 1) / kTileCols),
-                  (unsigned)((k + kTileRows - 1) / kTileRows), (unsigned)b);
+  const int64_t nt = (k + kCols - 1) / kCols;
+  if (nt * 4 > 65535 || b > 65535) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n64 = (int64_t)b * nt * (nt + 1) / 2;
+  const int rows = n64 < kShortPerSm * sms ? 16
+                   : n64 < kHalfPerSm * sms ? 32 : 64;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* bx = (const float*)boxes;
   const int* cl = (const int*)cls;
   int8_t* o = (int8_t*)out;
   switch (algo) {
     case skew_green::kGreen:
-      skew_kill_kernel<skew_green::kGreen>
-          <<<grid, block, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      err = launch_rows<skew_green::kGreen>(bx, cl, o, b, k, thr,
+                                            one_plus_thr, rows, s);
       break;
     case skew_green::kGreen2:
-      skew_kill_kernel<skew_green::kGreen2>
-          <<<grid, block, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      err = launch_rows<skew_green::kGreen2>(bx, cl, o, b, k, thr,
+                                             one_plus_thr, rows, s);
       break;
     case skew_green::kCandidates:
-      skew_kill_kernel<skew_green::kCandidates>
-          <<<grid, block, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      err = launch_rows<skew_green::kCandidates>(bx, cl, o, b, k, thr,
+                                                 one_plus_thr, rows, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

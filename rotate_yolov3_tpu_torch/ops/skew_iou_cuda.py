@@ -222,6 +222,54 @@ def pair_inter_areas(a: torch.Tensor, b: torch.Tensor, algo: str = "green"):
 
 
 # --------------------------------------------------------------------------
+# the near-pair test of kernels B and C (may_overlap in csrc/skew_green.cuh)
+# --------------------------------------------------------------------------
+
+_RAD_REL, _RAD_COORD, _RAD_ABS = 1.0001, 1e-5, 1e-5
+_MIN_SIDE, _MAX_COORD = 1e-3, 1e18
+
+
+def near_radius(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 5) f32 boxes -> (...,) the near-pair radius of each box: -inf
+    for a zero-area box with finite fields (its pairs cannot kill), +inf for a
+    box whose pairs always take the geometry (a NaN or inf field, a side
+    below 1e-3 or a coordinate or side above 1e18), else the circumradius
+    · 1.0001 + 1e-5·(|cx| + |cy|) + 1e-5 (the margin's derivation is in
+    ``csrc/skew_green.cuh``)."""
+    boxes = boxes.float()
+    cx, cy, w, h = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
+    finite = torch.isfinite(boxes).all(dim=-1)
+    plain = finite & (w >= _MIN_SIDE) & (h >= _MIN_SIDE) \
+        & (w <= _MAX_COORD) & (h <= _MAX_COORD) \
+        & (cx.abs() <= _MAX_COORD) & (cy.abs() <= _MAX_COORD)
+    hw, hh = w * 0.5, h * 0.5
+    r = torch.sqrt(hw * hw + hh * hh)
+    rad = r * _RAD_REL + _RAD_COORD * (cx.abs() + cy.abs()) + _RAD_ABS
+    rad = torch.where(plain, rad, torch.full_like(rad, float("inf")))
+    return torch.where(finite & (w * h == 0),
+                       torch.full_like(rad, float("-inf")), rad)
+
+
+def pair_may_overlap(a: torch.Tensor, b: torch.Tensor,
+                     iou_thr: float = 0.4) -> torch.Tensor:
+    """Broadcastable (..., 5) boxes -> (...) bool: False only where the pair's
+    kill is 0 whatever its intersection algo gives (a zero-area box, or
+    circumcircles plus the margin apart), as kernels B and C skip it: the
+    radii sum R is negative, or d² > R² (a NaN keeps the pair). For a
+    negative or NaN ``iou_thr`` nothing is skipped (inter 0 can kill then).
+    Used by the tests and by ``chip_smoke.py``'s bound count."""
+    ra, rb = near_radius(a), near_radius(b)
+    dx = a[..., 0].float() - b[..., 0].float()
+    dy = a[..., 1].float() - b[..., 1].float()
+    d2 = dx * dx + dy * dy
+    r = ra + rb
+    near = ~((r < 0) | (d2 > r * r))
+    if not iou_thr >= 0:
+        return torch.ones_like(near)
+    return near
+
+
+# --------------------------------------------------------------------------
 # kernels B and B': the kill mask
 # --------------------------------------------------------------------------
 
