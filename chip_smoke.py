@@ -9,8 +9,12 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
   1. the card's name and power limit (``nvidia-smi``);
   2. build every kernel of ``rotate_yolov3_tpu_torch/csrc/`` with nvcc;
   3. each kernel against its plain PyTorch version on the card: the row
-     gather (kernel A) bit for bit at B = 8 and at the main path's B = 128,
-     K = 512 (there beside torch.gather and its bound); the skew-IoU kill
+     gather (kernel A) bit for bit on the head maps in place (a list of
+     three (B, H*W, C) tables) and on one concatenated table, with indices
+     at every head's first and last cell and out of range, at B = 8, at the
+     main path's B = 128, K = 512, bf16, C = 126 and at the DOTA tile
+     stage's T = 25, C = 378 (timed there beside torch.cat + torch.gather,
+     torch.gather alone and its bound); the skew-IoU kill
      mask (kernel B) with each pair algo on every pair more than 1e-4 from
      the threshold, at B = 8 and 128 with K = 128 and 512, on uniform,
      clustered and all-overlap boxes, without and with 15 classes, and on
@@ -29,14 +33,16 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      (bit for bit) and against its plain version (on every image with no
      pair within 1e-4 of the threshold), at B = 8, K = 512 without and
      with 15 classes, at K = 1024 and at K = 200 with 15 classes, with a
-     worst-case suppression chain and an all-invalid image; its time
-     beside both;
+     worst-case suppression chain and an all-invalid image, and at B = 1,
+     K = 1024 on all-overlapping boxes (the dense worst case) and on boxes
+     that kill nothing; its time beside both and its bound;
   7. the DOTA slice: ``DeviceTilePipeline`` over ``Detector(
      "cfg/yolov3-rotate-dota.cfg")`` at 608² (25 tiles of a seeded
      synthetic 4000² scene, a K = 1024 merge) in bf16 and in f32 (TF32
      off): kernels A, B and C must launch through ``pipe(img)`` alone;
-     kernels A and B are held against their plain versions at the tile
-     stage's shapes (T = 25, 7581 cells of 378 lanes, K = 512, 15
+     kernels A (the heads in place, as the path calls it, and one
+     concatenated table) and B are held against their plain versions at
+     the tile stage's shapes (T = 25, 7581 cells of 378 lanes, K = 512, 15
      classes) on the path's own heads and boxes, and the per-tile keep
      against the plain recompute; the merged output must equal the merge
      recomputed through the plain kernel C from the same per-tile
@@ -44,7 +50,8 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      ``LB_TOL``; scene ms, tiles/s, the stage split and peak memory;
   8. ``fused_greedy=True`` on the HRSC serving heads at B = 128, max_det
      512: the same detections and keep as the default two-stage path, and
-     kernel C's time beside kernel B + fixpoint;
+     kernel C's time beside kernel B + fixpoint, its plain version and its
+     bound;
   9. the IoU matrix (kernel E), each pair algo, triangle off and on, at
      17 x 33, 512 x 512, the degenerate boxes and B = 8 images of 512
      through the per-image hook: within ``IOU_TOL`` of its plain version
@@ -57,7 +64,8 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      kernel B green2 + fixpoint, and its "candidates" equal to "green";
      times;
  11. the gather + decode kernel (kernel D) on HRSC heads (B = 8, K = 512,
-     bf16 and f32) and DOTA heads at the tile stage's shape (25 tiles,
+     bf16 and f32; B = 128, K = 512, bf16, the serving shape, with its
+     bound) and DOTA heads at the tile stage's shape (25 tiles,
      7581 cells x 378 lanes, nc = 15), with head-boundary indices and tied
      class logits: boxes within ``DECODE_RTOL``/``DECODE_ATOL`` of the
      plain version, class ids equal, columns 6-7 zero; times beside the
@@ -143,12 +151,18 @@ _KILL = (_CSRC + "skew_kill.cu",
 _NMS = (_CSRC + "nms_greedy.cu", "rotate_yolov3_tpu/ops/nms_pallas.py:189")
 _IOU = (_CSRC + "skew_iou_matrix.cu",
         "rotate_yolov3_tpu/ops/skew_iou_pallas.py:368")
+# kernels A and C have an entry at each of two shapes: A at the serving
+# path's B = 128 ("gather_rows") and the DOTA tile stage's ("gather_rows:
+# dota"); C at the DOTA merge's B = 1, K = 1024 ("nms_greedy:green") and
+# fused_greedy's B = 128, K = 512 ("nms_greedy:green:serving")
+_GATHER = (_CSRC + "gather_rows.cu",
+           "rotate_yolov3_tpu/ops/gather_rows.py:100")
 KERNELS = {
-    "gather_rows": (_CSRC + "gather_rows.cu",
-                    "rotate_yolov3_tpu/ops/gather_rows.py:100"),
+    "gather_rows": _GATHER, "gather_rows:dota": _GATHER,
     "skew_kill:green": _KILL, "skew_kill:green2": _KILL,
     "skew_kill:candidates": _KILL,
-    "nms_greedy:green": _NMS, "nms_greedy:green2": _NMS,
+    "nms_greedy:green": _NMS, "nms_greedy:green:serving": _NMS,
+    "nms_greedy:green2": _NMS,
     "decode_rows": (_CSRC + "decode_rows.cu",
                     "rotate_yolov3_tpu/ops/decode_pallas.py:188"),
     "skew_iou_matrix:green": _IOU, "skew_iou_matrix:green2": _IOU,
@@ -195,8 +209,8 @@ def bound(ops: float, nbytes: float) -> dict:
 
 # One probe kernel per (kind, pair algo): it decides one pair from records
 # in global memory, so its SASS holds exactly the instructions one pair
-# executes. kill_rec is kernel B (per-box quantities read from the record),
-# kill kernel C and iou kernel E (both form them per pair from a Box).
+# executes. kill_rec is kernels B and C (per-box quantities read from the
+# record), iou kernel E (it forms them per pair from a Box).
 PROBE_SRC = r"""
 #include "skew_green.cuh"
 using namespace skew_green;
@@ -213,9 +227,6 @@ using namespace skew_green;
 KILL(kill_rec_green, BoxRec, kGreen)
 KILL(kill_rec_green2, BoxRec, kGreen2)
 KILL(kill_rec_candidates, BoxRec, kCandidates)
-KILL(kill_green, Box, kGreen)
-KILL(kill_green2, Box, kGreen2)
-KILL(kill_candidates, Box, kCandidates)
 IOU(iou_green, kGreen)
 IOU(iou_green2, kGreen2)
 IOU(iou_candidates, kCandidates)
@@ -261,7 +272,7 @@ def count_pair_ops(_build) -> None:
                 flops += 2 if op == "FFMA" else 1
         kind, algo = name.rsplit("_", 1)
         PAIR_OPS[(kind, algo)] = (flops, instr)
-    missing = {(k, a) for k in ("kill_rec", "kill", "iou")
+    missing = {(k, a) for k in ("kill_rec", "iou")
                for a in ("green", "green2", "candidates")} - set(PAIR_OPS)
     if missing:
         raise AssertionError(f"pair probes missing from the SASS: {missing}")
@@ -304,61 +315,87 @@ def phase_build(_build) -> None:
                                     in PAIR_OPS.items()))
 
 
+def _gather_case(torch, gen, b: int, c: int, dtype, k: int):
+    """Head maps of a 608² input (19², 38², 76² cells: 7581) as the path
+    views them, (b, H*W, c) tables, and (b, k) int32 indices whose first
+    entries are every head's first and last cell and two out of range."""
+    tables = [torch.randn((b, g * g, c), generator=gen, device=DEVICE
+                          ).to(dtype) for g in (19, 38, 76)]
+    n = sum(t.shape[1] for t in tables)
+    idx = torch.randint(0, n, (b, k), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    edges = [0, 360, 361, 1804, 1805, n - 1, -5, n + 9]
+    idx[:, :len(edges)] = torch.tensor(edges, dtype=torch.int32)
+    return tables, idx
+
+
+def _gather_equal(torch, what, tables, idx) -> float:
+    """Kernel A on the tables in place and on their concatenation, each bit
+    for bit its plain version; the worst |kernel - plain|."""
+    from rotate_yolov3_tpu_torch.ops.gather_rows import (gather_rows,
+                                                         gather_rows_ref)
+
+    ref = gather_rows_ref(tables, idx)
+    bits = torch.int16 if ref.dtype == torch.bfloat16 else torch.int32
+    worst = 0.0
+    for form, cells in (("heads in place", tables),
+                        ("one table", torch.cat(tables, dim=1))):
+        got = gather_rows(cells, idx)
+        if not torch.equal(got.view(bits), ref.view(bits)):
+            raise AssertionError(f"gather_rows {what} ({form}): kernel "
+                                 f"differs from torch.cat + torch.gather")
+        worst = max(worst, _max_err(got, ref))
+    return worst
+
+
 def phase_gather(torch, card, results) -> None:
     from rotate_yolov3_tpu_torch.ops.gather_rows import (gather_rows,
                                                          gather_rows_ref)
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    n, c = 7581, 126
+    c = 126
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        cells = torch.randn((B_CHECK, n, c), generator=gen, device=DEVICE
-                            ).to(dtype)
         for k in (128, 512):
-            idx = torch.randint(0, n, (B_CHECK, k), generator=gen,
-                                device=DEVICE, dtype=torch.int32)
-            idx[:, :6] = torch.tensor([0, 0, n - 1, n - 1, -5, n + 9],
-                                      dtype=torch.int32)
-            got = gather_rows(cells, idx)
-            ref = gather_rows_ref(cells, idx)
-            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            if not torch.equal(got.view(bits), ref.view(bits)):
-                raise AssertionError(f"gather_rows {dtype} K={k}: kernel "
-                                     f"differs from torch.gather")
-            err = float((got.float() - ref.float()).abs().max())
-            worst = max(worst, err)
-            ms = device_ms(torch, lambda: gather_rows(cells, idx))
-            plain = device_ms(torch, lambda: gather_rows_ref(cells, idx))
-            call = time_ms(torch, lambda: gather_rows(cells, idx))
-            call_p = time_ms(torch, lambda: gather_rows_ref(cells, idx))
-            log(f"gather_rows {str(dtype)[6:]} B={B_CHECK} N={n} C={c} "
-                f"K={k}: bit-equal; device kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms; per call {call:.4f} ms, plain {call_p:.4f}"
-                f" ms [{card}]")
-    # the main path's shape, max_det 512: B_BENCH images, bf16
-    b, k = B_BENCH, 512
-    cells = torch.randn((b, n, c), generator=gen, device=DEVICE
-                        ).to(torch.bfloat16)
-    idx = torch.randint(0, n, (b, k), generator=gen, device=DEVICE,
-                        dtype=torch.int32)
-    got, ref = gather_rows(cells, idx), gather_rows_ref(cells, idx)
-    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-        raise AssertionError(f"gather_rows B={b}: kernel differs from "
-                             f"torch.gather")
-    ms = device_ms(torch, lambda: gather_rows(cells, idx), reps=20)
-    plain = device_ms(torch, lambda: gather_rows_ref(cells, idx), reps=20)
-    # the library call: torch.gather on an index clamped beforehand
-    idx64 = idx.long().clamp(0, n - 1)[..., None].expand(-1, -1, c)
-    lib = device_ms(torch, lambda: torch.gather(cells, 1, idx64), reps=20)
-    # K rows of C bf16 read and written, K int32 indices read
-    bnd = bound(0, b * k * (2 * c * 2 + 4))
-    log(f"gather_rows bfloat16 B={b} N={n} C={c} K={k}: bit-equal; device "
-        f"kernel {ms:.4f} ms, plain (clamp + gather) {plain:.4f} ms, "
-        f"torch.gather on a clamped int64 index {lib:.4f} ms; bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-        f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
-    results["gather_rows"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                              "max_abs_err": worst, **bnd}
+            tables, idx = _gather_case(torch, gen, B_CHECK, c, dtype, k)
+            worst = max(worst, _gather_equal(
+                torch, f"{dtype} B={B_CHECK} K={k}", tables, idx))
+            ms = device_ms(torch, lambda: gather_rows(tables, idx))
+            plain = device_ms(torch, lambda: gather_rows_ref(tables, idx))
+            call = time_ms(torch, lambda: gather_rows(tables, idx))
+            call_p = time_ms(torch, lambda: gather_rows_ref(tables, idx))
+            log(f"gather_rows {str(dtype)[6:]} B={B_CHECK} N=7581 C={c} "
+                f"K={k}: bit-equal (heads in place and one table, head "
+                f"boundaries, out of range); device kernel {ms:.4f} ms, "
+                f"plain (cat + gather) {plain:.4f} ms; per call "
+                f"{call:.4f} ms, plain {call_p:.4f} ms [{card}]")
+    # the serving path's shape, max_det 512 (B_BENCH images, HRSC), and the
+    # DOTA tile stage's (25 tiles, 15 classes: C = 378), bf16
+    for key, b, ch in (("gather_rows", B_BENCH, c), ("gather_rows:dota", 25,
+                                                      378)):
+        k = 512
+        tables, idx = _gather_case(torch, gen, b, ch, torch.bfloat16, k)
+        err = _gather_equal(torch, f"bfloat16 B={b} C={ch}", tables, idx)
+        ms = device_ms(torch, lambda: gather_rows(tables, idx), reps=20)
+        plain = device_ms(torch, lambda: gather_rows_ref(tables, idx),
+                          reps=20)
+        # the library call: torch.gather on the concatenated table with an
+        # index clamped beforehand
+        cat = torch.cat(tables, dim=1)
+        n = cat.shape[1]
+        idx64 = idx.long().clamp(0, n - 1)[..., None].expand(-1, -1, ch)
+        lib = device_ms(torch, lambda: torch.gather(cat, 1, idx64), reps=20)
+        # K rows of C bf16 read and written, K int32 indices read
+        bnd = bound(0, b * k * (2 * ch * 2 + 4))
+        log(f"gather_rows bfloat16 B={b} N={n} C={ch} K={k}: bit-equal; "
+            f"device kernel {ms:.4f} ms (heads in place), torch.cat + "
+            f"torch.gather (plain) {plain:.4f} ms, torch.gather on the "
+            f"concatenated table with a clamped int64 index {lib:.4f} ms; "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
+        results[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                        "max_abs_err": max(worst, err), **bnd}
+        del tables, idx, cat, idx64
 
 
 def _detection_boxes(torch, gen, k: int, b=None):
@@ -681,15 +718,13 @@ def _device_events(torch, fn, reps: int):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of ``fn()``: the CUDA kernel time that torch.profiler
-    records over ``reps`` calls, divided by ``reps``. Where the profiler
-    records no device time, the CUDA-event time of ``reps`` back-to-back
-    calls divided by ``reps`` stands in (an upper bound), and a line says
-    so."""
-    total_us = sum(us for _, us in _device_events(torch, fn, reps))
-    if total_us > 0:
-        return total_us / reps / 1e3
+def queue_ms(torch, fn, reps: int = 20) -> float:
+    """CUDA-event time of ``reps`` back-to-back calls of ``fn()`` over
+    ``reps``, after one untimed call: the device time per call where each
+    call's kernels outlast its launch on the host (the queue stays full),
+    an upper bound where they do not."""
+    fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -697,9 +732,22 @@ def device_ms(torch, fn, reps: int = 10) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device time of ``fn()``: the CUDA kernel time that torch.profiler
+    records over ``reps`` calls, divided by ``reps``; the larger of two
+    such passes, since a pass that drops kernel events (seen on the H100)
+    only reads low. Where the profiler records no device time,
+    ``queue_ms`` stands in (an upper bound), and a line says so."""
+    total_us = max(sum(us for _, us in _device_events(torch, fn, reps))
+                   for _ in range(2))
+    if total_us > 0:
+        return total_us / reps / 1e3
     log("(torch.profiler recorded no device time; CUDA events over "
         f"{reps} back-to-back calls instead)")
-    return start.elapsed_time(end) / reps
+    return queue_ms(torch, fn, reps)
 
 
 def top_kernels(torch, fn, n: int = 8) -> str:
@@ -798,6 +846,25 @@ def _nms_boxes(torch, gen, b: int, k: int, n_cls: int, special: bool):
     return boxes, cls, valid
 
 
+def _nms_layout(torch, gen, b: int, k: int, n_cls: int, layout: str):
+    """Phase 6's boxes, classes and valid rows: ``_nms_boxes`` ("random",
+    or "special" with the chain and the all-invalid image), "all-overlap"
+    (``kill_layout``'s: every pair overlaps, every row valid) or "no-kill"
+    (boxes of 5-10 px on a 50-px grid: no pair intersects)."""
+    if layout in ("random", "special"):
+        return _nms_boxes(torch, gen, b, k, n_cls, layout == "special")
+    valid = torch.ones((b, k), dtype=torch.bool, device=DEVICE)
+    if layout == "all-overlap":
+        return kill_layout(torch, gen, layout, b, k), None, valid
+    i = torch.arange(k, device=DEVICE, dtype=torch.float32).expand(b, k)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        (b, k), generator=gen, device=DEVICE)
+    boxes = torch.stack([50 * (i % 32), 50 * torch.div(i, 32,
+                                                       rounding_mode="floor"),
+                         u(5, 10), u(5, 10), u(-3.1416, 3.1416)], dim=-1)
+    return boxes.contiguous(), None, valid
+
+
 def phase_nms_greedy(torch, card, results) -> None:
     from rotate_yolov3_tpu_torch.ops.nms_greedy import (nms_greedy,
                                                         nms_greedy_ref)
@@ -805,12 +872,16 @@ def phase_nms_greedy(torch, card, results) -> None:
     from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
 
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-    cases = [  # (B, K, classes, thr, chain + all-invalid images)
-        (B_CHECK, 512, 0, THR, True), (B_CHECK, 512, 15, THR, True),
-        (1, 1024, 15, MERGE_THR, False), (2, 1024, 15, MERGE_THR, True),
-        (3, 200, 15, MERGE_THR, True)]   # K not a multiple of 32
-    for b, k, n_cls, thr, special in cases:
-        boxes, cls, valid = _nms_boxes(torch, gen, b, k, n_cls, special)
+    cases = [  # (B, K, classes, thr, layout)
+        (B_CHECK, 512, 0, THR, "special"), (B_CHECK, 512, 15, THR, "special"),
+        (1, 1024, 15, MERGE_THR, "random"), (2, 1024, 15, MERGE_THR,
+                                             "special"),
+        (3, 200, 15, MERGE_THR, "special"),   # K not a multiple of 32
+        (1, 1024, 0, MERGE_THR, "all-overlap"),
+        (1, 1024, 0, MERGE_THR, "no-kill")]
+    for b, k, n_cls, thr, layout in cases:
+        special = layout == "special"
+        boxes, cls, valid = _nms_layout(torch, gen, b, k, n_cls, layout)
         keep = nms_greedy(boxes, cls, valid, thr)
         two_stage = lambda: keep_two_stage(boxes, cls, valid, thr)
         if not torch.equal(keep, two_stage()):
@@ -834,7 +905,10 @@ def phase_nms_greedy(torch, card, results) -> None:
                 raise AssertionError(f"nms_greedy B={b} K={k}: wrong keep on "
                                      f"the chain or the all-invalid image")
         n_kept = int(keep.sum())
-        if not 0 < n_kept < int(valid.sum()):
+        if layout == "no-kill" and not torch.equal(keep, valid):
+            raise AssertionError(f"nms_greedy B={b} K={k} no-kill: a row "
+                                 f"was suppressed")
+        if layout != "no-kill" and not 0 < n_kept < int(valid.sum()):
             raise AssertionError(f"nms_greedy B={b} K={k}: nothing kept or "
                                  f"nothing suppressed")
         # 50 calls: one launch of ~0.06 ms is too short a window to time
@@ -846,8 +920,9 @@ def phase_nms_greedy(torch, card, results) -> None:
         call = time_ms(torch, lambda: nms_greedy(boxes, cls, valid, thr))
         call_two = time_ms(torch, two_stage, reps=5, warmup=1)
         tag = f"{n_cls} classes" if n_cls else "no-cls"
-        log(f"nms_greedy {tag} B={b} K={k} thr={thr}"
-            f"{' (chain + all-invalid)' if special else ''}: keep equal to "
+        shape = {"special": " (chain + all-invalid)", "random": "",
+                 "all-overlap": " all-overlap", "no-kill": " no-kill"}[layout]
+        log(f"nms_greedy {tag} B={b} K={k} thr={thr}{shape}: keep equal to "
             f"kernel B + fixpoint; equal to the plain version on "
             f"{int(clean.sum())} of {b} images ({int(band.sum())} live pairs "
             f"within ±{BAND} of thr, {int((keep != ref).sum())} keep "
@@ -855,14 +930,15 @@ def phase_nms_greedy(torch, card, results) -> None:
             f"device kernel C {ms:.4f} ms, kernel B + fixpoint {two_ms:.4f} "
             f"ms, plain {plain:.4f} ms; per call C {call:.4f} ms, B + "
             f"fixpoint {call_two:.4f} ms [{card}]")
-        if (b, k, special) == (1, 1024, False):
+        if b == 1:
             # the near pairs' geometry, or boxes, classes, valid in and keep
-            # out; the walk's K dependent steps are not counted
+            # out; the walk's dependent steps are not counted
             p_near = live_pairs(torch, boxes, cls, thr)[0]
-            bnd = bound(p_near * pair_ops("kill", "green"), b * k * 26)
-            log(f"nms_greedy B={b} K={k}: {p_near} near pairs; bound "
-                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+            bnd = bound(p_near * pair_ops("kill_rec", "green"), b * k * 26)
+            log(f"nms_greedy {tag} B={b} K={k}{shape}: {p_near} near pairs; "
+                f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
                 f"{100 * bnd['bound_ms'] / ms:.1f}% of it [{card}]")
+        if layout == "random":
             results["nms_greedy:green"] = {
                 "ms": ms, "plain_ms": plain, "library_ms": None,
                 "max_abs_err": float((keep[clean].float()
@@ -892,13 +968,13 @@ def _dota_scene(seed: int = 6):
 
 def _tiles_vs_plain(torch, card, name, det, lb, tile_dets, tile_mask):
     """The DOTA path's per-tile stage recomputed from the same heads:
-    kernel A against ``torch.gather`` on the path's (T, cells, na·no) maps
-    and rows (bit for bit), kernel B against its plain version on the path's
-    boxes and classes (every pair outside the band), and the per-tile keep
+    kernel A on the path's head maps in place (as ``decode_gathered`` calls
+    it) and on their concatenated (T, cells, na·no) table against
+    ``torch.cat`` + ``torch.gather`` (bit for bit), kernel B against its
+    plain version on the path's boxes and classes (every pair outside the
+    band), and the per-tile keep
     and detections through the plain versions (every tile whose kill masks
     agree). Returns the worst |kernel - plain| of A and of B."""
-    from rotate_yolov3_tpu_torch.ops.gather_rows import (gather_rows,
-                                                         gather_rows_ref)
     from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy_ref
     from rotate_yolov3_tpu_torch.ops.rotated_nms import (decode_candidates,
                                                          nms_from_candidates,
@@ -912,16 +988,17 @@ def _tiles_vs_plain(torch, card, name, det, lb, tile_dets, tile_mask):
     heads = det.heads(lb)
     scores, idx, valid = select_candidates(heads, specs, det.conf_thres,
                                            det.max_det, det.approx_top_k, fm)
-    # kernel A: the cell rows decode_gathered gathers
+    # kernel A: the cell rows decode_gathered gathers, from the heads as it
+    # passes them (views of the channels-last maps: no copy)
     na, no = specs[0].na, specs[0].no
-    cells = torch.cat([h.reshape(h.shape[0], -1, na * no) for h in heads],
-                      dim=1).contiguous()
+    tables = [h.reshape(h.shape[0], -1, na * no) for h in heads]
+    if not all(t.is_contiguous() for t in tables):
+        raise AssertionError(f"dota {name}: a head map is not a contiguous "
+                             f"(T, H*W, na*no) view")
     cell_idx = torch.div(idx, na, rounding_mode="floor").contiguous()
-    got, ref = gather_rows(cells, cell_idx), gather_rows_ref(cells, cell_idx)
-    bits = torch.int16 if cells.dtype == torch.bfloat16 else torch.int32
-    if not torch.equal(got.view(bits), ref.view(bits)):
-        raise AssertionError(f"dota {name}: gather_rows at the tile shapes "
-                             f"differs from torch.gather")
+    gather_err = _gather_equal(torch, f"dota {name} tile stage", tables,
+                               cell_idx)
+
     # kernel B: the class-aware kill mask of the decoded boxes
     boxes, cls = decode_candidates(heads, specs, idx, valid, fm)
     cls_arg = cls if use_cls else None
@@ -949,15 +1026,17 @@ def _tiles_vs_plain(torch, card, name, det, lb, tile_dets, tile_mask):
             torch.equal(out_r[same], out_k[same])):
         raise AssertionError(f"dota {name}: per-tile keep differs from the "
                              f"plain recompute")
-    log(f"dota {name} tile stage, T={cells.shape[0]} cells={cells.shape[1]} "
-        f"C={cells.shape[2]} K={idx.shape[1]}, "
+    log(f"dota {name} tile stage, T={tables[0].shape[0]} cells="
+        f"{sum(t.shape[1] for t in tables)} C={tables[0].shape[2]} "
+        f"K={idx.shape[1]}, "
         f"{'class-aware' if use_cls else 'no-cls'} thr={thr}: kernel A "
-        f"bit-equal to torch.gather; kernel B equal to "
+        f"(heads in place and one table) bit-equal to torch.cat + "
+        f"torch.gather; kernel B equal to "
         f"its plain version on {int(far.sum())} pairs "
         f"({int((kill_k != kill_r).sum())} differ within ±{BAND}); keep and "
         f"detections equal to the plain recompute on {int(same.sum())} of "
         f"{same.numel()} tiles, {int(keep_k.sum())} kept [{card}]")
-    return (float((got.float() - ref.float()).abs().max()),
+    return (gather_err,
             float((kill_k.float() - kill_r.float())[far].abs().max()))
 
 
@@ -1005,6 +1084,8 @@ def phase_dota(torch, card, results) -> None:
             if dtype == torch.bfloat16:
                 results["nms_greedy:green"]["launches"] = \
                     launches["nms_greedy"]
+                results["gather_rows:dota"]["launches"] = \
+                    launches["gather_rows"]
             kept = dets[mask]
             if dets.shape != (1024, 7) or mask.shape != (1024,) or \
                     not bool(torch.isfinite(torch.from_numpy(dets)).all()) \
@@ -1025,7 +1106,8 @@ def phase_dota(torch, card, results) -> None:
                 tile_dets, tile_mask = det(lb)
                 errs = _tiles_vs_plain(torch, card, name, det, lb, tile_dets,
                                        tile_mask)
-                for key, err in zip(("gather_rows", "skew_kill:green"), errs):
+                for key, err in zip(("gather_rows:dota", "skew_kill:green"),
+                                    errs):
                     results[key]["max_abs_err"] = max(
                         results[key]["max_abs_err"], err)
                 rows, valid, _ = pipe.select(tile_dets, tile_mask, ratio,
@@ -1115,9 +1197,10 @@ def phase_dota(torch, card, results) -> None:
              torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
-def phase_fused_serving(torch, card) -> None:
+def phase_fused_serving(torch, card, results) -> None:
     from rotate_yolov3_tpu_torch.detector import Detector
-    from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import (nms_greedy,
+                                                        nms_greedy_ref)
     from rotate_yolov3_tpu_torch.ops.rotated_nms import (
         decode_candidates, keep_two_stage, non_max_suppression_fused,
         select_candidates)
@@ -1140,6 +1223,7 @@ def phase_fused_serving(torch, card) -> None:
     if nms_greedy.launches != 1:
         raise AssertionError(f"fused_greedy: kernel C launched "
                              f"{nms_greedy.launches} times, not once")
+    n_fused = nms_greedy.launches
     if not (torch.equal(fused[1], base[1]) and torch.equal(fused[0],
                                                            base[0])):
         raise AssertionError("fused_greedy: detections or keep differ from "
@@ -1152,17 +1236,50 @@ def phase_fused_serving(torch, card) -> None:
                                            det.approx_top_k, fm)
     boxes, _ = decode_candidates(heads, specs, idx, valid, fm)
     two_stage = lambda: keep_two_stage(boxes, None, valid, THR)
-    c_ms = device_ms(torch, lambda: nms_greedy(boxes, None, valid, THR))
+    # kernel C's time: CUDA events over back-to-back calls (each launch
+    # takes far longer than its enqueue, so the queue stays full), beside
+    # the profiler's reading
+    c_fn = lambda: nms_greedy(boxes, None, valid, THR)
+    c_ms = queue_ms(torch, c_fn, reps=50)
+    c_prof = device_ms(torch, c_fn)
     b_ms = device_ms(torch, two_stage)
     c_call = time_ms(torch, lambda: nms_greedy(boxes, None, valid, THR))
     b_call = time_ms(torch, two_stage, reps=5, warmup=1)
+    # the plain version, KILL_CHUNK images a call, against kernel C on every
+    # image without a pair in the band
+    keep = nms_greedy(boxes, None, valid, THR)
+    plain_fn = lambda: _in_chunks(torch, lambda bx, v: nms_greedy_ref(
+        bx, None, v, THR), boxes, valid)
+    ref = plain_fn()
+    clean = _in_chunks(torch, lambda bx, v: _clean_images(torch, bx, None, v),
+                       boxes, valid)
+    if not torch.equal(keep[clean], ref[clean]):
+        raise AssertionError("fused_greedy: kernel C differs from its plain "
+                             "version on an image without a band pair")
+    plain = device_ms(torch, plain_fn, reps=1)
+    # the near pairs' geometry (kernel C reads BoxRec records, as B), or
+    # boxes and valid in, keep out
+    p_near, p_all = live_pairs(torch, boxes, None)
+    bnd = bound(p_near * pair_ops("kill_rec", "green"),
+                B_BENCH * max_det * 22)
     log(f"fused_greedy bf16 B={B_BENCH} max_det={max_det} @{det.img_size}: "
         f"detections "
         f"and keep equal to the default ({int(base[1].sum())} kept); NMS "
         f"tail per call {full_f:.3f} ms fused vs {full_b:.3f} ms two-stage; "
-        f"device kernel C {c_ms:.4f} ms vs kernel B + fixpoint {b_ms:.4f} "
-        f"ms; per call C {c_call:.4f} ms vs B + fixpoint {b_call:.4f} ms "
+        f"device kernel C {c_ms:.4f} ms (CUDA events over 50 back-to-back "
+        f"calls; torch.profiler {c_prof:.4f} ms) vs kernel B + fixpoint "
+        f"{b_ms:.4f} ms, plain {plain:.4f} ms ({B_BENCH // KILL_CHUNK} "
+        f"calls of "
+        f"{KILL_CHUNK} images; {int(clean.sum())} of {B_BENCH} images have "
+        f"no band pair, equal there); per call C {c_call:.4f} ms vs B + "
+        f"fixpoint {b_call:.4f} ms; P_near/P_all {p_near}/{p_all} = "
+        f"{p_near / p_all:.4f}; bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']}), {100 * bnd['bound_ms'] / c_ms:.1f}% of it "
         f"[{card}]")
+    results["nms_greedy:green:serving"] = {
+        "ms": c_ms, "plain_ms": plain, "library_ms": None,
+        "launches": n_fused,
+        "max_abs_err": _max_err(keep[clean], ref[clean]), **bnd}
     del det, x, heads
 
 
@@ -1387,7 +1504,7 @@ def phase_pair_algos(torch, card, results) -> None:
             f"{two_ms:.4f} ms, plain {plain:.4f} ms [{card}]")
         if not n_cls:
             p_near = live_pairs(torch, nb, ncls)[0]
-            bnd = bound(p_near * pair_ops("kill", "green2"),
+            bnd = bound(p_near * pair_ops("kill_rec", "green2"),
                         B_CHECK * 512 * 26)
             log(f"nms_greedy green2 no-cls B={B_CHECK} K=512: {p_near} near "
                 f"pairs; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}),"
@@ -1426,8 +1543,10 @@ def phase_decode(torch, card, results) -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     k, img = 512, NET_IMG or 608
     worst = 0.0
+    # the last case, HRSC bf16 at the serving batch, gives the JSON entry
     for cfg, b, dtypes in ((CFG, B_CHECK, (torch.bfloat16, torch.float32)),
-                           (DOTA_CFG, 25, (torch.bfloat16,))):
+                           (DOTA_CFG, 25, (torch.bfloat16,)),
+                           (CFG, B_BENCH, (torch.bfloat16,))):
         specs = build_network(parse_model_cfg(cfg), img_size=img).yolo_specs
         na, nc = specs[0].na, specs[0].num_classes
         for dtype in dtypes:
@@ -1777,7 +1896,7 @@ def main() -> int:
     phase_bench(torch, card)
     phase_nms_greedy(torch, card, results)
     phase_dota(torch, card, results)
-    phase_fused_serving(torch, card)
+    phase_fused_serving(torch, card, results)
     phase_iou_matrix(torch, card, results)
     phase_pair_algos(torch, card, results)
     phase_decode(torch, card, results)

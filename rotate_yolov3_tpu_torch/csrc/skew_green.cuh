@@ -1,7 +1,8 @@
 // Exact rotated-rectangle intersection, its IoU and the divide-free
 // greedy-NMS kill predicate. Device code shared by kernel B (skew_kill.cu),
 // kernel C (nms_greedy.cu) and kernel E (skew_iou_matrix.cu), so all three
-// decide every pair with the same arithmetic. Three pair algos, each written
+// decide every pair with the same arithmetic; kernels B and C also share
+// the pair-tile pass (PairTile, at the end). Three pair algos, each written
 // in the operation order of its plain version in the port (which follows
 // the reference):
 //   kGreen       Green's-theorem slab clipping,
@@ -484,7 +485,8 @@ __device__ inline float inter_area_candidates(const Box& a, const Box& b) {
 
 // ---- the pair algos' common interface ----------------------------------
 
-// T is Box, or BoxRec with the per-box quantities computed once (kernel B).
+// T is Box, or BoxRec with the per-box quantities computed once (kernels B
+// and C).
 template <int kAlgo, class T>
 __device__ __forceinline__ float inter_area(const T& a, const T& b) {
   if constexpr (kAlgo == kGreen2) {
@@ -606,14 +608,169 @@ __device__ __forceinline__ bool kill_predicate(const T& a, const T& b,
   return inter * one_plus_thr > thr * (area_a + area_b);
 }
 
-// kill = j > i && cls_i == cls_j && inter * (1 + thr) > thr * (A + B): row
-// i (a, higher score) suppresses row j (b). Pairs that live_pair rejects
-// skip the geometry; their kill is 0 either way.
-template <int kAlgo>
-__device__ __forceinline__ bool kills(const Box& a, const Box& b, int i,
-                                      int j, float thr, float one_plus_thr) {
-  return live_pair(a, b, i, j, thr) &&
-         kill_predicate<kAlgo>(a, b, thr, one_plus_thr);
+// ---- pair tiles: the kill pass of kernels B (skew_kill.cu) and C -------
+//
+// A block of kTileThreads threads owns a tile of kRows rows x kTileCols
+// columns of one image's pairs. Its box records (BoxRec, the per-box
+// quantities of the pair code) are formed once into shared memory
+// (tile_load); step 1 (tile_collect) tests every pair for j > i, class and
+// may_overlap (~15 operations) and appends the survivors to a pair list in
+// shared memory; step 2 (tile_drain) runs the geometry over that list
+// densely, so no lane idles on a culled pair, and reports each pair that
+// kills. Both kernels decide each pair with these same operations, so their
+// kill bits are equal.
+
+constexpr int kTileCols = 64;
+constexpr int kTileThreads = 256;
+constexpr int kTileRowsPerPass = kTileThreads / kTileCols;   // 4 rows a pass
+// fewer live 64-row tiles than these many per SM take 16- or 32-row tiles
+constexpr int64_t kShortPerSm = 1, kHalfPerSm = 4;
+
+// A tile's box records field by field, so that lanes reading different
+// boxes hit different shared-memory banks.
+template <int N>
+struct TileBoxes {
+  float cx[N], cy[N], w[N], h[N], ux[N], uy[N];
+  int cls[N];
+  float rad[N];
+  float hw[N], hh[N], ox[4][N], oy[4][N], ex[2][N], ey[2][N], area[N];
+
+  __device__ __forceinline__ void put(int t, const BoxRec& x) {
+    cx[t] = x.cx;
+    cy[t] = x.cy;
+    w[t] = x.w;
+    h[t] = x.h;
+    ux[t] = x.ux;
+    uy[t] = x.uy;
+    cls[t] = x.cls;
+    rad[t] = x.rad;
+    hw[t] = x.hw;
+    hh[t] = x.hh;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ox[c][t] = x.ox[c];
+      oy[c][t] = x.oy[c];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ex[e][t] = x.ex[e];
+      ey[e][t] = x.ey[e];
+    }
+    area[t] = x.area;
+  }
+  // the fields the near-pair test reads
+  __device__ __forceinline__ Box get_box(int t) const {
+    return Box{cx[t], cy[t], w[t], h[t], ux[t], uy[t], cls[t], rad[t]};
+  }
+  __device__ __forceinline__ BoxRec get(int t) const {
+    BoxRec r;
+    static_cast<Box&>(r) = get_box(t);
+    r.hw = hw[t];
+    r.hh = hh[t];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      r.ox[c] = ox[c][t];
+      r.oy[c] = oy[c][t];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      r.ex[e] = ex[e][t];
+      r.ey[e] = ey[e][t];
+    }
+    r.area = area[t];
+    return r;
+  }
+};
+
+template <int kRows>
+struct PairTile {
+  TileBoxes<kRows> rows;
+  TileBoxes<kTileCols> cols;
+  uint16_t pairs[kRows * kTileCols];   // (r << 6) | c
+  int n_pairs;
+};
+
+// The records of columns col0.. and rows row0.. of one image's (k, 5) boxes
+// (threads tid < kTileCols + kRows), and an empty pair list. The caller
+// synchronises before tile_collect.
+template <int kRows>
+__device__ __forceinline__ void tile_load(PairTile<kRows>& t,
+                                          const float* boxes_b,
+                                          const int* cls_b, int k, int row0,
+                                          int col0, int tid) {
+  if (tid < kTileCols + kRows) {
+    Box x;
+    if (tid < kTileCols) {
+      load_box(boxes_b, cls_b, col0 + tid, k, &x);
+      t.cols.put(tid, make_rec(x));
+    } else {
+      load_box(boxes_b, cls_b, row0 + tid - kTileCols, k, &x);
+      t.rows.put(tid - kTileCols, make_rec(x));
+    }
+  }
+  if (tid == 0) t.n_pairs = 0;
+}
+
+// Step 1: each warp tests 32 neighbouring columns of one row per pass and
+// appends the live pairs (ballot, popc prefix, one shared atomic per warp).
+template <int kRows>
+__device__ __forceinline__ void tile_collect(PairTile<kRows>& t, int k,
+                                             int row0, int col0, float thr,
+                                             int tid) {
+  static_assert(kRows % kTileRowsPerPass == 0, "a pass covers 4 rows");
+  const int lane = tid & 31;
+  const int c = (tid / 32 % 2) * 32 + lane;   // this thread's column
+  const int j = col0 + c;
+  const Box col = t.cols.get_box(c);
+  const unsigned lanes_below = (1u << lane) - 1u;
+  for (int r = tid / kTileCols; r < kRows; r += kTileRowsPerPass) {
+    const int i = row0 + r;
+    const bool live =
+        i < k && j < k && live_pair(t.rows.get_box(r), col, i, j, thr);
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (m == 0u) continue;                     // warp-uniform
+    int base = 0;
+    if (lane == 0) base = atomicAdd(&t.n_pairs, __popc(m));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (live) {
+      t.pairs[base + __popc(m & lanes_below)] = (uint16_t)((r << 6) | c);
+    }
+  }
+}
+
+// Step 2: the listed pairs, densely; kill(r, c) for each pair that kills.
+template <int kAlgo, int kRows, class F>
+__device__ __forceinline__ void tile_drain(const PairTile<kRows>& t,
+                                           float thr, float one_plus_thr,
+                                           int tid, F kill) {
+  const int n = t.n_pairs;
+  for (int e = tid; e < n; e += kTileThreads) {
+    const int p = t.pairs[e];
+    const int pr = p >> 6, pc = p & (kTileCols - 1);
+    if (kill_predicate<kAlgo>(t.rows.get(pr), t.cols.get(pc), thr,
+                              one_plus_thr)) {
+      kill(pr, pc);
+    }
+  }
+}
+
+// Tile height for b images of k boxes, from the live 64-row tiles per SM
+// (n64 = b T (T + 1) / 2 for T = ceil(k / 64) column tiles, the SM count
+// read from the current device): 16 rows below one per SM, 32 below four,
+// else 64. More, smaller blocks spread a dense image (every pair near)
+// over the card; larger tiles read fewer box records per pair, which
+// sparse images need.
+inline cudaError_t tile_rows(int64_t b, int k, int* rows) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t nt = (k + kTileCols - 1) / kTileCols;
+  const int64_t n64 = b * nt * (nt + 1) / 2;
+  *rows = n64 < kShortPerSm * sms ? 16 : n64 < kHalfPerSm * sms ? 32 : 64;
+  return cudaSuccess;
 }
 
 }  // namespace skew_green

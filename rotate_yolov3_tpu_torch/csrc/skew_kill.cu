@@ -50,6 +50,8 @@
 //     memory;
 //   * step 2: all 256 threads drain the list densely through the geometry
 //     and set the tile's bytes, so no lane idles on a culled pair;
+//     (the records, steps 1 and 2 and the tile rule are skew_green.cuh's
+//     pair-tile pass, which kernel C runs too);
 //   * step 3: the 64 x 64 tile leaves as one 16-byte store per thread
 //     (rows of 64 bytes, coalesced), byte stores where K is not a multiple
 //     of 16 or the tile overhangs K;
@@ -64,72 +66,11 @@
 
 namespace {
 
-using skew_green::Box;
-using skew_green::BoxRec;
+using skew_green::kTileCols;
+using skew_green::kTileThreads;
+using skew_green::PairTile;
 
-constexpr int kCols = 64;              // columns of a block's tile
-constexpr int kThreads = 256;
-constexpr int kRowsPerPass = kThreads / kCols;   // 4 rows tested per pass
-constexpr int kChunks = kCols / 16;    // 16-byte chunks per tile row
-constexpr unsigned kFull = 0xffffffffu;
-// fewer live 64-row tiles than these many per SM take 16- or 32-row tiles
-constexpr int64_t kShortPerSm = 1, kHalfPerSm = 4;
-
-// A tile's box records field by field, so that lanes reading different
-// boxes hit different shared-memory banks.
-template <int N>
-struct TileBoxes {
-  float cx[N], cy[N], w[N], h[N], ux[N], uy[N];
-  int cls[N];
-  float rad[N];
-  float hw[N], hh[N], ox[4][N], oy[4][N], ex[2][N], ey[2][N], area[N];
-
-  __device__ __forceinline__ void put(int t, const BoxRec& x) {
-    cx[t] = x.cx;
-    cy[t] = x.cy;
-    w[t] = x.w;
-    h[t] = x.h;
-    ux[t] = x.ux;
-    uy[t] = x.uy;
-    cls[t] = x.cls;
-    rad[t] = x.rad;
-    hw[t] = x.hw;
-    hh[t] = x.hh;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      ox[c][t] = x.ox[c];
-      oy[c][t] = x.oy[c];
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      ex[e][t] = x.ex[e];
-      ey[e][t] = x.ey[e];
-    }
-    area[t] = x.area;
-  }
-  // the fields the near-pair test reads
-  __device__ __forceinline__ Box get_box(int t) const {
-    return Box{cx[t], cy[t], w[t], h[t], ux[t], uy[t], cls[t], rad[t]};
-  }
-  __device__ __forceinline__ BoxRec get(int t) const {
-    BoxRec r;
-    static_cast<Box&>(r) = get_box(t);
-    r.hw = hw[t];
-    r.hh = hh[t];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      r.ox[c] = ox[c][t];
-      r.oy[c] = oy[c][t];
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      r.ex[e] = ex[e][t];
-      r.ey[e] = ey[e][t];
-    }
-    r.area = area[t];
-    return r;
-  }
-};
+constexpr int kChunks = kTileCols / 16;    // 16-byte chunks per tile row
 
 // Thread tid's 16-byte chunk of a tile of kRows rows: row tid / 4, bytes
 // 16 (tid % 4).. Vector store where the chunk is whole and aligned (k % 16
@@ -146,89 +87,54 @@ __device__ __forceinline__ void store_chunk(int8_t* out_b, int k, int row0,
   int8_t* dst = out_b + (int64_t)i * k + j;
   if ((k & 15) == 0 && j + 16 <= k) {
     *reinterpret_cast<int4*>(dst) =
-        src ? *reinterpret_cast<const int4*>(src + r * kCols + c)
+        src ? *reinterpret_cast<const int4*>(src + r * kTileCols + c)
             : make_int4(0, 0, 0, 0);
   } else {
     for (int t = 0; t < 16 && j + t < k; ++t) {
-      dst[t] = src ? src[r * kCols + c + t] : (int8_t)0;
+      dst[t] = src ? src[r * kTileCols + c + t] : (int8_t)0;
     }
   }
 }
 
 template <int kAlgo, int kRows>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads)
     skew_kill_kernel(const float* __restrict__ boxes,
                      const int* __restrict__ cls, int8_t* __restrict__ out,
                      int k, float thr, float one_plus_thr) {
-  static_assert(kRows % kRowsPerPass == 0 && kRows * kChunks <= kThreads,
-                "a pass covers 4 rows; one 16-byte chunk per thread");
+  static_assert(kRows * kChunks <= kTileThreads,
+                "one 16-byte chunk per thread");
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kCols;
+  const int col0 = blockIdx.x * kTileCols;
   const int tid = threadIdx.x;
   int8_t* out_b = out + (int64_t)b * k * k;
 
   // at or below the diagonal: zeros only (block-uniform branch)
-  if (col0 + kCols - 1 <= row0) {
+  if (col0 + kTileCols - 1 <= row0) {
     store_chunk<kRows>(out_b, k, row0, col0, tid, nullptr);
     return;
   }
 
-  __shared__ TileBoxes<kRows> rows;
-  __shared__ TileBoxes<kCols> cols;
-  __shared__ __align__(16) int8_t tile[kRows * kCols];
-  __shared__ uint16_t pairs[kRows * kCols];   // (r << 6) | c
-  __shared__ int n_pairs;
+  __shared__ PairTile<kRows> t;
+  __shared__ __align__(16) int8_t tile[kRows * kTileCols];
 
-  const float* boxes_b = boxes + (int64_t)b * k * 5;
-  const int* cls_b = cls ? cls + (int64_t)b * k : nullptr;
-  if (tid < kCols + kRows) {
-    Box x;
-    if (tid < kCols) {
-      skew_green::load_box(boxes_b, cls_b, col0 + tid, k, &x);
-      cols.put(tid, skew_green::make_rec(x));
-    } else {
-      skew_green::load_box(boxes_b, cls_b, row0 + tid - kCols, k, &x);
-      rows.put(tid - kCols, skew_green::make_rec(x));
-    }
-  }
-  if (tid < kRows * kCols / 16) {
+  skew_green::tile_load(t, boxes + (int64_t)b * k * 5,
+                        cls ? cls + (int64_t)b * k : nullptr, k, row0, col0,
+                        tid);
+  if (tid < kRows * kTileCols / 16) {
     reinterpret_cast<int4*>(tile)[tid] = make_int4(0, 0, 0, 0);
   }
-  if (tid == 0) n_pairs = 0;
   __syncthreads();
 
-  // step 1: each warp tests 32 columns of one row per pass
-  const int lane = tid & 31;
-  const int c = (tid / 32 % 2) * 32 + lane;   // this thread's column
-  const int j = col0 + c;
-  const Box col = cols.get_box(c);
-  const unsigned lanes_below = (1u << lane) - 1u;
-  for (int r = tid / kCols; r < kRows; r += kRowsPerPass) {
-    const int i = row0 + r;
-    const bool live = i < k && j < k &&
-                      skew_green::live_pair(rows.get_box(r), col, i, j, thr);
-    const unsigned m = __ballot_sync(kFull, live);
-    if (m == 0u) continue;                     // warp-uniform
-    int base = 0;
-    if (lane == 0) base = atomicAdd(&n_pairs, __popc(m));
-    base = __shfl_sync(kFull, base, 0);
-    if (live) {
-      pairs[base + __popc(m & lanes_below)] = (uint16_t)((r << 6) | c);
-    }
-  }
+  // step 1: the live pairs into the list
+  skew_green::tile_collect(t, k, row0, col0, thr, tid);
   __syncthreads();
 
   // step 2: the near pairs, densely
-  const int n = n_pairs;
-  for (int e = tid; e < n; e += kThreads) {
-    const int p = pairs[e];
-    const int pr = p >> 6, pc = p & (kCols - 1);
-    if (skew_green::kill_predicate<kAlgo>(rows.get(pr), cols.get(pc), thr,
-                                          one_plus_thr)) {
-      tile[pr * kCols + pc] = 1;
-    }
-  }
+  skew_green::tile_drain<kAlgo>(t, thr, one_plus_thr, tid,
+                                [&](int r, int c) {
+                                  tile[r * kTileCols + c] = 1;
+                                });
   __syncthreads();
 
   // step 3: the tile to device memory
@@ -238,10 +144,10 @@ __global__ void __launch_bounds__(kThreads)
 template <int kAlgo, int kRows>
 cudaError_t launch(const float* bx, const int* cl, int8_t* o, int b, int k,
                    float thr, float one_plus_thr, cudaStream_t s) {
-  const dim3 grid((unsigned)((k + kCols - 1) / kCols),
+  const dim3 grid((unsigned)((k + kTileCols - 1) / kTileCols),
                   (unsigned)((k + kRows - 1) / kRows), (unsigned)b);
   skew_kill_kernel<kAlgo, kRows>
-      <<<grid, kThreads, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
+      <<<grid, kTileThreads, 0, s>>>(bx, cl, o, k, thr, one_plus_thr);
   return cudaGetLastError();
 }
 
@@ -267,17 +173,11 @@ extern "C" int skew_kill_launch(const void* boxes, const void* cls, void* out,
                                 int b, int k, float thr, float one_plus_thr,
                                 int algo, void* stream) {
   if (b == 0 || k == 0) return 0;
-  const int64_t nt = (k + kCols - 1) / kCols;
+  const int64_t nt = (k + kTileCols - 1) / kTileCols;
   if (nt * 4 > 65535 || b > 65535) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  int rows = 0;
+  cudaError_t err = skew_green::tile_rows(b, k, &rows);
   if (err != cudaSuccess) return (int)err;
-  const int64_t n64 = (int64_t)b * nt * (nt + 1) / 2;
-  const int rows = n64 < kShortPerSm * sms ? 16
-                   : n64 < kHalfPerSm * sms ? 32 : 64;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* bx = (const float*)boxes;
   const int* cl = (const int*)cls;

@@ -9,13 +9,14 @@ Torch counterpart of ``rotate_yolov3_tpu/models/yolo_head.py``. Per cell:
 
 Anchors are (wh-major, angle-minor): anchor k = (wh[k // n_ang],
 angles[k % n_ang]). ``decode_gathered`` ports the uniform-na path of the
-reference (every cfg in ``cfg/`` has one na for all heads): the heads' cell
-rows are concatenated and the K candidate rows gathered once, through
-kernel A (``ops.gather_rows``).
+reference (every cfg in ``cfg/`` has one na for all heads): the K candidate
+cell rows are gathered once, through kernel A (``ops.gather_rows``), from
+the head maps in place.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -107,6 +108,17 @@ def head_scores(raw: torch.Tensor, spec: YoloSpec,
     return (obj * cls).reshape(b, -1)
 
 
+@functools.lru_cache(maxsize=64)
+def _anchor_tables(spec: YoloSpec, device: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A head's (na, 2) anchor w/h and (na,) angles on ``device``, built
+    once per (spec, device), so no call copies them from the host. Callers
+    only read them."""
+    awh, aang = head_anchors(spec)
+    return (torch.from_numpy(awh).to(device),
+            torch.from_numpy(aang).to(device))
+
+
 def decode_gathered(head_raws: Sequence[torch.Tensor],
                     yolo_specs: Sequence[YoloSpec], idx: torch.Tensor,
                     field_major: bool = False) -> torch.Tensor:
@@ -117,9 +129,9 @@ def decode_gathered(head_raws: Sequence[torch.Tensor],
     (B, K, 6+nc) f32 rows equal to ``decode_all(...)[b, idx]``.
 
     With one na for all heads, ``idx // na`` is the global cell row and
-    ``idx % na`` the anchor: one row gather (kernel A) over the
-    concatenated (B, cells, na·no) maps, then the anchor's ``no`` fields are
-    picked from the gathered row.
+    ``idx % na`` the anchor: one row gather (kernel A) over the heads' cell
+    rows, read in place as (B, H*W, na·no) tables, then the anchor's ``no``
+    fields are picked from the gathered row.
     """
     from ..ops.gather_rows import gather_rows
 
@@ -130,11 +142,10 @@ def decode_gathered(head_raws: Sequence[torch.Tensor],
     b, k = idx.shape
     no, na = yolo_specs[0].no, yolo_specs[0].na
 
-    cells_all = torch.cat([r.reshape(r.shape[0], -1, na * no)
-                           for r in head_raws], dim=1)
     cell_g = torch.div(idx, na, rounding_mode="floor")
     a_idx = (idx - cell_g * na).long()
-    r_cells = gather_rows(cells_all.contiguous(), cell_g.contiguous())
+    r_cells = gather_rows([r.reshape(r.shape[0], -1, na * no).contiguous()
+                           for r in head_raws], cell_g.contiguous())
 
     # lane of field f of the selected anchor
     f = torch.arange(no, device=idx.device, dtype=torch.int64)
@@ -154,9 +165,7 @@ def decode_gathered(head_raws: Sequence[torch.Tensor],
         gx = torch.where(in_h, (local % w).float(), gx)
         gy = torch.where(in_h, torch.div(local, w, rounding_mode="floor")
                          .float(), gy)
-        awh_h, aang_h = head_anchors(s)
-        awh_t = torch.from_numpy(awh_h).to(idx.device)
-        aang_t = torch.from_numpy(aang_h).to(idx.device)
+        awh_t, aang_t = _anchor_tables(s, idx.device)
         aw_v = torch.where(in_h, awh_t[a_idx, 0], aw_v)
         ah_v = torch.where(in_h, awh_t[a_idx, 1], ah_v)
         aang_v = torch.where(in_h, aang_t[a_idx], aang_v)

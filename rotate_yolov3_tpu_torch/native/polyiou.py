@@ -1,10 +1,10 @@
 """Exact polygon IoU on the host: a ctypes binding of the C++ ``polyiou``.
 
 The DOTA merge and Task-1 evaluation run on the host, as the DOTA devkit's
-C++ polyiou does. The source is the JAX package's framework-free
-``rotate_yolov3_tpu/native/polyiou.cpp``, read by path (importing
-``rotate_yolov3_tpu.native`` would import jax through the package's
-``__init__``). ``g++`` builds it at first use into the port's git-ignored
+C++ polyiou does. The source is the port's own ``polyiou.cpp`` beside this
+file, a byte-for-byte copy of the JAX package's framework-free
+``rotate_yolov3_tpu/native/polyiou.cpp`` (the port reads no file of that
+package). ``g++`` builds it at first use into the port's git-ignored
 ``_build/``, named by a hash of the source and the flags; a missing ``g++``
 raises.
 """
@@ -23,8 +23,7 @@ import numpy as np
 
 from .._build import BUILD_DIR
 
-SRC = (Path(__file__).resolve().parents[2] / "rotate_yolov3_tpu" / "native"
-       / "polyiou.cpp")
+SRC = Path(__file__).resolve().parent / "polyiou.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

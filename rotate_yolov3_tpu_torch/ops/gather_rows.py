@@ -1,11 +1,17 @@
-"""Batched row gather (B, N, C)[(B, K)] -> (B, K, C): kernel A of the port.
+"""Batched row gather over the head maps, read in place: kernel A of the port.
 
-Counterpart of ``rotate_yolov3_tpu/ops/gather_rows.py``. The decode stage of
-the score-first serving path gathers the top-K candidate cell rows out of
-the concatenated head maps (``models.yolo_head.decode_gathered``).
-``gather_rows`` launches the hand-written CUDA kernel
-(``csrc/gather_rows.cu``) on a CUDA tensor and uses the plain version,
-``gather_rows_ref``, only for a tensor on the CPU. Out-of-range indices are
+Counterpart of ``rotate_yolov3_tpu/ops/gather_rows.py``: (B, N, C) cells +
+(B, K) int32 row indices -> (B, K, C). The decode stage of the score-first
+serving path gathers the top-K candidate cell rows of the head maps
+(``models.yolo_head.decode_gathered``). Where the reference gathers from the
+concatenated (B, N, C) cell table, ``gather_rows`` also takes the heads as a
+sequence of (B, N_h, C) tables (each head map viewed as rows) and gathers
+from their virtual concatenation along the cell axis, so that table is never
+built; a single tensor is a one-element sequence.
+
+``gather_rows`` launches the hand-written CUDA kernel (``csrc/gather_rows.cu``)
+on CUDA tensors and uses the plain version, ``gather_rows_ref`` (``torch.cat``
++ ``torch.gather``), only for tensors on the CPU. Out-of-range indices are
 clamped to [0, N), the reference's XLA ``mode="clip"`` contract. Both copy
 raw elements, so they agree bit for bit.
 """
@@ -13,55 +19,93 @@ raw elements, so they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from .. import _build
 
+_MAX_HEADS = 4     # the kernel's head pointers, as kernel D's
 
-def gather_rows_ref(cells: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``torch.gather`` on clamped int64 indices."""
-    i = idx.long().clamp(0, cells.shape[1] - 1)
-    return torch.gather(cells, 1, i[..., None].expand(-1, -1, cells.shape[2]))
+Cells = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _tables(cells: Cells) -> Tuple[torch.Tensor, ...]:
+    """The (B, N_h, C) tables of ``cells``: one tensor or a sequence."""
+    tables = (cells,) if isinstance(cells, torch.Tensor) else tuple(cells)
+    if not tables:
+        raise ValueError("gather_rows: no tables to gather from")
+    if len(tables) > _MAX_HEADS:
+        raise ValueError(f"gather_rows: {len(tables)} tables, the kernel "
+                         f"takes at most {_MAX_HEADS}")
+    b, c = tables[0].shape[0], tables[0].shape[-1]
+    for t in tables:
+        if t.ndim != 3 or t.shape[0] != b or t.shape[2] != c or \
+                t.dtype != tables[0].dtype:
+            raise ValueError(f"gather_rows: tables "
+                             f"{[tuple(x.shape) for x in tables]} "
+                             f"{[x.dtype for x in tables]} are not (B, N_h, "
+                             f"C) of one dtype")
+    return tables
+
+
+def gather_rows_ref(cells: Cells, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``torch.cat`` of the tables along the cell
+    axis, then ``torch.gather`` on clamped int64 indices."""
+    tables = _tables(cells)
+    cat = tables[0] if len(tables) == 1 else torch.cat(tables, dim=1)
+    i = idx.long().clamp(0, cat.shape[1] - 1)
+    return torch.gather(cat, 1, i[..., None].expand(-1, -1, cat.shape[2]))
 
 
 def _launcher():
     fn = _build.load("gather_rows").gather_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * _MAX_HEADS + [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def gather_rows(cells: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) cells + (B, K) int32 row indices -> (B, K, C).
+def gather_rows(cells: Cells, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) cells, or a sequence of at most four (B, N_h, C) tables
+    read as their concatenation along the cell axis, + (B, K) int32 row
+    indices -> (B, K, C).
 
-    Equals ``gather_rows_ref`` bit for bit. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel, or raises.
+    Equals ``gather_rows_ref`` bit for bit. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, or raise.
     """
-    if cells.ndim != 3 or idx.ndim != 2 or idx.shape[0] != cells.shape[0]:
-        raise ValueError(f"gather_rows: cells {tuple(cells.shape)} and idx "
-                         f"{tuple(idx.shape)} are not (B, N, C) and (B, K)")
+    tables = _tables(cells)
+    if idx.ndim != 2 or idx.shape[0] != tables[0].shape[0]:
+        raise ValueError(f"gather_rows: tables of batch {tables[0].shape[0]} "
+                         f"and idx {tuple(idx.shape)} are not (B, N_h, C) "
+                         f"and (B, K)")
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows: idx must be int32, got {idx.dtype}")
-    if cells.shape[1] == 0:
+    if sum(t.shape[1] for t in tables) == 0:
         raise ValueError("gather_rows: no rows to gather from")
-    if cells.device.type == "cpu" and idx.device.type == "cpu":
-        return gather_rows_ref(cells, idx)
-    if cells.device.type != "cuda" or idx.device != cells.device:
-        raise ValueError(f"gather_rows: cells on {cells.device} and idx on "
-                         f"{idx.device}; both must be on one CUDA device")
-    if cells.element_size() not in (2, 4):
-        raise TypeError(f"gather_rows: {cells.dtype} is not a 2- or 4-byte "
-                        f"type")
-    if not (cells.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("gather_rows: cells and idx must be contiguous")
-    b, n, c = cells.shape
+    tensors = tables + (idx,)
+    if all(t.device.type == "cpu" for t in tensors):
+        return gather_rows_ref(tables, idx)
+    dev = idx.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"gather_rows: tables on "
+                         f"{[str(t.device) for t in tables]} and idx on "
+                         f"{dev}; all must be on one CUDA device")
+    if tables[0].element_size() not in (2, 4):
+        raise TypeError(f"gather_rows: {tables[0].dtype} is not a 2- or "
+                        f"4-byte type")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gather_rows: tables and idx must be contiguous")
+    b, c = tables[0].shape[0], tables[0].shape[2]
     k = idx.shape[1]
-    out = torch.empty((b, k, c), dtype=cells.dtype, device=cells.device)
-    with torch.cuda.device(cells.device):
-        err = _launcher()(cells.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                          b, n, k, c, cells.element_size(),
+    out = torch.empty((b, k, c), dtype=tables[0].dtype, device=dev)
+    n = len(tables)
+    ptrs = [t.data_ptr() for t in tables] + [None] * (_MAX_HEADS - n)
+    cells_per = (ctypes.c_int * _MAX_HEADS)(*[t.shape[1] for t in tables])
+    with torch.cuda.device(dev):
+        err = _launcher()(*ptrs, n, cells_per, idx.data_ptr(),
+                          out.data_ptr(), b, k, c, tables[0].element_size(),
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "

@@ -9,18 +9,20 @@ and a greedy walk that reaches the fixpoint's unique solution.
 
 ``nms_greedy`` launches the hand-written CUDA kernel (``csrc/nms_greedy.cu``)
 on a CUDA tensor and uses the plain version, ``nms_greedy_ref``, only for a
-tensor on the CPU. K is capped at 1024 (``nms_greedy_fused_ok``), as in the
-reference; a larger K takes the two-stage path. The pair algo is
-``"green"`` or ``"green2"``; like the reference, any other known algo
-(``"candidates"``) computes ``"green"``, and an unknown one raises
-``ValueError``. The reference's TPU tiling arguments (``block_n``,
-``block_m``, ``interpret``) have no counterpart here.
+tensor on the CPU. ``greedy_walk_ref`` mirrors the kernel's chunked greedy
+walk in plain PyTorch for the tests. K is capped at 1024
+(``nms_greedy_fused_ok``), as in the reference; a larger K takes the
+two-stage path. The pair algo is ``"green"`` or ``"green2"``; like the
+reference, any other known algo (``"candidates"``) computes ``"green"``,
+and an unknown one raises ``ValueError``. The reference's TPU tiling
+arguments (``block_n``, ``block_m``, ``interpret``) have no counterpart
+here.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +35,11 @@ _MASK_DTYPES = ("float32", "bfloat16")
 # the kernel's pair algos; the reference computes "green" for any algo
 # other than "green2"
 _ALGOS = ("green", "green2")
+_WORD = 32
+# (device index, stream) -> the kernel's per-image counters and summary
+# words: zero on entry to every launch, and the kernel leaves them zero, so
+# no memset runs per call. Grown (zeroed anew) when a batch needs more.
+_STATE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def kernel_algo(algo: str) -> str:
@@ -82,12 +89,72 @@ def nms_greedy_ref(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
     return greedy_suppress_fixpoint_kill(kill, valid)
 
 
-def _launcher():
-    fn = _build.load("nms_greedy").nms_greedy_launch
+def greedy_walk_ref(kill: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of kernel C's greedy walk, for the tests: a (B, K, K)
+    kill mask (strictly upper-triangular; ``kill[b, i, j]``: kept row i
+    suppresses row j) + (B, K) valid -> (B, K) keep, the same keep as
+    ``greedy_suppress_fixpoint_kill``.
+
+    As the kernel: each row's kill bits packed into 32-bit words (chunk c
+    holds rows and columns 32c..32c+31); per chunk a summary word of the
+    rows that kill past their own chunk's (diagonal) word. Chunk by chunk:
+    alive = valid & ~removed, resolved in row order among the alive rows
+    whose diagonal word is not zero; then the words past the diagonal of
+    the kept rows with a summary bit are ORed into removed."""
+    b, k = valid.shape
+    nw = -(-k // _WORD)
+    pad = nw * _WORD - k
+    weights = 1 << torch.arange(_WORD, dtype=torch.int64)
+    bits = torch.nn.functional.pad(kill.bool().cpu(), (0, pad, 0, pad))
+    words = (bits.view(b, nw * _WORD, nw, _WORD).long() * weights).sum(-1)
+    vbits = torch.nn.functional.pad(valid.bool().cpu(), (0, pad))
+    vwords = (vbits.view(b, nw, _WORD).long() * weights).sum(-1)
+    keep = torch.zeros((b, nw * _WORD), dtype=torch.bool)
+    for img in range(b):
+        rows = words[img].tolist()              # rows[i][w]
+        summ = [sum(1 << r for r in range(_WORD)
+                    if any(rows[c * _WORD + r][c + 1:]))
+                for c in range(nw)]
+        removed = [0] * nw
+        for c in range(nw):
+            alive = vwords[img, c].item() & ~removed[c]
+            diag = [rows[c * _WORD + r][c] for r in range(_WORD)]
+            m = alive & sum(1 << r for r in range(_WORD) if diag[r])
+            while m:
+                r = (m & -m).bit_length() - 1
+                alive &= ~diag[r]
+                m &= (m - 1) & alive
+            for r in range(_WORD):
+                keep[img, c * _WORD + r] = bool(alive >> r & 1)
+            m = alive & summ[c]
+            while m:
+                r = (m & -m).bit_length() - 1
+                m &= m - 1
+                for w in range(c + 1, nw):
+                    removed[w] |= rows[c * _WORD + r][w]
+    return keep[:, :k].to(valid.device)
+
+
+def _lib():
+    lib = _build.load("nms_greedy")
+    fn = lib.nms_greedy_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
         + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    for size in (lib.nms_greedy_mask_ld, lib.nms_greedy_state_words):
+        size.argtypes = [ctypes.c_int]
+        size.restype = ctypes.c_int
+    return lib
+
+
+def _state(device: torch.device, words: int) -> torch.Tensor:
+    """The zeroed counter and summary words of the current stream."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _STATE.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros((words,), dtype=torch.int32, device=device)
+        _STATE[key] = buf
+    return buf
 
 
 def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
@@ -119,16 +186,17 @@ def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("nms_greedy: inputs must be contiguous")
     b, k = boxes.shape[:2]
-    nw = -(-k // 32)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if keep.numel() == 0:
         return keep
-    mask = torch.empty((b * k * nw,), dtype=torch.int32, device=boxes.device)
-    done = torch.empty((b,), dtype=torch.int32, device=boxes.device)
     with torch.cuda.device(boxes.device):
-        err = _launcher()(
+        lib = _lib()
+        mask = torch.empty((b * k * lib.nms_greedy_mask_ld(k),),
+                           dtype=torch.int32, device=boxes.device)
+        state = _state(boxes.device, b * lib.nms_greedy_state_words(k))
+        err = lib.nms_greedy_launch(
             boxes.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
-            valid.data_ptr(), mask.data_ptr(), done.data_ptr(),
+            valid.data_ptr(), mask.data_ptr(), state.data_ptr(),
             keep.data_ptr(), b, k, iou_thr, 1.0 + iou_thr,
             _ALGOS.index(algo), torch.cuda.current_stream().cuda_stream)
     if err != 0:
