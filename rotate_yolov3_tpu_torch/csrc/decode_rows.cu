@@ -10,10 +10,19 @@
 //   cy = (sigmoid(ty) + gy) * stride     h = anchor_h * exp(clip(th, +-c))
 //   theta = anchor_angle + angle_range * tanh(t_theta)
 //
-// with the box fields zeroed (multiplied by 0) where not valid, and cls_id
-// the first maximum of the raw class logits (0 when nc = 1), kept on
-// invalid rows. Indices are clamped to [0, N * na), the row gather's clip
+// with the box fields multiplied by 0 where not valid (a NaN or inf field
+// stays NaN there, as in the reference), and cls_id kept on invalid rows (0
+// when nc = 1). Indices are clamped to [0, N * na), the row gather's clip
 // mode.
+//
+// The class id is the reference's sequential rule (rotate_yolov3_tpu/ops/
+// decode_pallas.py, cls_body): start at class 0 with its logit, move to
+// class c only where logit c > the best so far. So a NaN never wins, a NaN
+// in class 0 pins the id to 0, and an all -inf row gives 0. Each thread runs
+// that loop over its own row in registers, so it is the rule itself, not a
+// reduction that would have to reproduce it. The clip propagates NaN, as
+// jnp.clip does (fminf/fmaxf would turn a NaN into the bound); +-inf clip to
+// +-c.
 //
 // Replaces the TPU kernel rotate_yolov3_tpu/ops/decode_pallas.py::
 // decode_rows_pallas (body _decode_kernel). That kernel gathers the K cell
@@ -21,15 +30,22 @@
 // table held in VMEM; on this card a direct indexed load reads the same
 // values, and it reads them from the head maps in place, so the (B, N, C)
 // concatenation is never built. Per-head cell counts, widths, strides and
-// anchor tables ride in a small struct passed by value.
+// anchor tables ride in a struct passed by value (__grid_constant__, so the
+// anchor table can be read with a runtime index without a local copy).
 //
-// What bounds it on Hopper: latency of scattered loads. Each row reads 6+nc
-// values of one cell (lanes na apart when field-major), about 0.1% of the
-// head maps at K = 512. Design: one warp per (b, k) row, lane f loading
-// field f (looping by 32 past 32 fields), so a row's loads are issued
-// together; the class argmax is a warp reduction that keeps the lowest
-// class index among equal maxima (the reference's strict > from class 1
-// on); lane 0 decodes and writes the 32-byte row.
+// What bounds it on Hopper: the latency of one dependent chain of scattered
+// loads (index -> fields), not bandwidth. A row reads 5 + nc values of one
+// cell (5 for nc = 1: the objectness lane is not needed, and one class needs
+// no argmax), na lanes apart when field-major, so each sits in its own
+// 32-byte sector: at B = 128, K = 512 that is ~10.5 MB of sectors for ~0.1%
+// of the head maps. Design: one thread per (b, k) row. It loads its index,
+// selects its head with compile-time indices (no stack frame), issues all of
+// its field and class loads (the first kClsChunk classes; later chunks,
+// nc > 16, follow in turn) before it uses any, runs the argmax and the
+// decode in registers and writes its row as two float4, so a warp writes 1
+// KB of rows contiguously. 65,536 rows are 2,048 warps: one wave of the
+// card, one latency chain. The anchor table is staged in shared memory once
+// per block while the index loads are in flight.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,27 +55,27 @@ namespace {
 
 constexpr int kMaxHeads = 4;
 constexpr int kMaxNa = 32;
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;        // rows of a block, one per thread
+constexpr int kRowsPerThread = 1;    // rows a thread loads before it decodes
+constexpr int kClsChunk = 16;        // class logits loaded together
 
 struct Heads {
   const void* ptr[kMaxHeads];
   int cells[kMaxHeads];   // H * W
   int width[kMaxHeads];   // W
   float stride[kMaxHeads];
-  float aw[kMaxHeads][kMaxNa];
-  float ah[kMaxHeads][kMaxNa];
-  float aa[kMaxHeads][kMaxNa];
+  // per head h: na widths, na heights, na angles at (h * 3 + q) * na
+  float anchors[kMaxHeads * 3 * kMaxNa];
   int n;
 };
 
 template <bool kBf16>
 __device__ __forceinline__ float load(const void* base, int64_t i) {
   if constexpr (kBf16) {
-    const uint16_t u = ((const uint16_t*)base)[i];
+    const unsigned short u = __ldg((const unsigned short*)base + i);
     return __uint_as_float((uint32_t)u << 16);
   } else {
-    return ((const float*)base)[i];
+    return __ldg((const float*)base + i);
   }
 }
 
@@ -67,74 +83,157 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// clip(x, -c, c) that keeps a NaN, as jnp.clip and torch.clamp do
+__device__ __forceinline__ float clip_nan(float x, float c) {
+  const float lo = (x > -c || x != x) ? x : -c;
+  return (lo < c || lo != lo) ? lo : c;
+}
+
+// One row's loads in flight: its head, cell and anchor, and its raw values.
+struct Row {
+  const void* src;   // the row's head map
+  int64_t lane0;     // element of field 0 of the row's anchor
+  int step;          // elements between fields
+  int h, local, a;
+  float t[5];                 // tx, ty, tw, th, t_theta
+  float cls[kClsChunk];       // class logits 0.. (nc > 1)
+};
+
 template <bool kBf16>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-    decode_rows_kernel(const Heads heads, const int* __restrict__ idx,
+__device__ __forceinline__ void fetch(const Heads& heads, int g, int bi,
+                                      int c, int na, int nc,
+                                      int field_major, Row& r) {
+  const int cell = g / na;
+  r.a = g - cell * na;
+  // the head of the cell, selected with compile-time indices only
+  int h = 0, local = cell;
+#pragma unroll
+  for (int hh = 0; hh + 1 < kMaxHeads; ++hh) {
+    if (h == hh && hh + 1 < heads.n && local >= heads.cells[hh]) {
+      local -= heads.cells[hh];
+      h = hh + 1;
+    }
+  }
+  const void* src = heads.ptr[0];
+  int cells = heads.cells[0];
+#pragma unroll
+  for (int hh = 1; hh < kMaxHeads; ++hh) {
+    if (h == hh) {
+      src = heads.ptr[hh];
+      cells = heads.cells[hh];
+    }
+  }
+  r.src = src;
+  r.h = h;
+  r.local = local;
+  const int no = 6 + nc;
+  r.step = field_major ? na : 1;
+  r.lane0 = ((int64_t)bi * cells + local) * c + (field_major ? r.a : r.a * no);
+#pragma unroll
+  for (int f = 0; f < 5; ++f) {
+    r.t[f] = load<kBf16>(src, r.lane0 + (int64_t)f * r.step);
+  }
+#pragma unroll
+  for (int k = 0; k < kClsChunk; ++k) {
+    r.cls[k] = (nc > 1 && k < nc)
+                   ? load<kBf16>(src, r.lane0 + (int64_t)(6 + k) * r.step)
+                   : 0.0f;
+  }
+}
+
+// The reference's class rule: class 0 first, then strict > in class order.
+template <bool kBf16>
+__device__ __forceinline__ int class_id(Row& r, int nc) {
+  if (nc <= 1) return 0;
+  float best = r.cls[0];
+  int id = 0;
+#pragma unroll
+  for (int k = 1; k < kClsChunk; ++k) {
+    if (k < nc && r.cls[k] > best) {
+      best = r.cls[k];
+      id = k;
+    }
+  }
+  for (int c0 = kClsChunk; c0 < nc; c0 += kClsChunk) {
+#pragma unroll
+    for (int k = 0; k < kClsChunk; ++k) {
+      r.cls[k] = c0 + k < nc ? load<kBf16>(r.src, r.lane0 + (int64_t)(
+                                                      6 + c0 + k) * r.step)
+                             : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kClsChunk; ++k) {
+      if (c0 + k < nc && r.cls[k] > best) {
+        best = r.cls[k];
+        id = c0 + k;
+      }
+    }
+  }
+  return id;
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    decode_rows_kernel(const __grid_constant__ Heads heads,
+                       const int* __restrict__ idx,
                        const uint8_t* __restrict__ valid,
                        float* __restrict__ out, int rows, int k, int c,
                        int na, int nc, int field_major, int n_idx,
                        float angle_range, float wh_clamp) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.y;
-  const int lane = threadIdx.x;
-  if (row >= rows) return;  // warp-uniform
-  const int bi = row / k;
+  __shared__ float anc[kMaxHeads * 3 * kMaxNa];
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * (kThreads * kRowsPerThread) + tid;
 
-  const int g = min(max(idx[row], 0), n_idx - 1);
-  const int cell = g / na;
-  const int a = g - cell * na;
-  int h = 0, local = cell;
-  for (int hh = 0; hh < heads.n; ++hh) {
-    if (local < heads.cells[hh] || hh == heads.n - 1) {
-      h = hh;
-      break;
-    }
-    local -= heads.cells[hh];
+  // the index and valid loads first: they need no table
+  int g[kRowsPerThread];
+  bool ok[kRowsPerThread];
+#pragma unroll
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    const int row = first + q * kThreads;
+    g[q] = row < rows ? min(max(__ldg(idx + row), 0), n_idx - 1) : 0;
+    ok[q] = row < rows && __ldg(valid + row) != 0;
   }
-  const int64_t base = ((int64_t)bi * heads.cells[h] + local) * c;
+  for (int e = tid; e < heads.n * 3 * na; e += kThreads) {
+    anc[e] = heads.anchors[e];
+  }
+  __syncthreads();
 
-  // lane f holds field f; class lanes keep their first maximum
-  const int no = 6 + nc;
-  float field = 0.0f, best_v = -INFINITY;
-  int best_c = nc;
-  for (int f = lane; f < no; f += 32) {
-    const int ln = field_major ? f * na + a : a * no + f;
-    const float x = load<kBf16>(heads.ptr[h], base + ln);
-    if (f < 5) field = x;
-    if (f >= 6 && x > best_v) {
-      best_v = x;
-      best_c = f - 6;
+  Row r[kRowsPerThread];
+#pragma unroll
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    const int row = first + q * kThreads;
+    if (row < rows) {
+      fetch<kBf16>(heads, g[q], row / k, c, na, nc, field_major, r[q]);
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, best_v, off);
-    const int oc = __shfl_xor_sync(kFull, best_c, off);
-    if (ov > best_v || (ov == best_v && oc < best_c)) {
-      best_v = ov;
-      best_c = oc;
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    const int row = first + q * kThreads;
+    if (row >= rows) continue;
+    Row& x = r[q];
+    const int id = class_id<kBf16>(x, nc);
+    int width = heads.width[0];
+    float stride = heads.stride[0];
+#pragma unroll
+    for (int hh = 1; hh < kMaxHeads; ++hh) {
+      if (x.h == hh) {
+        width = heads.width[hh];
+        stride = heads.stride[hh];
+      }
     }
+    const float gx = (float)(x.local % width);
+    const float gy = (float)(x.local / width);
+    const float* at = anc + x.h * 3 * na + x.a;
+    const float vf = ok[q] ? 1.0f : 0.0f;
+    const float bx = (sigmoid(x.t[0]) + gx) * stride;
+    const float by = (sigmoid(x.t[1]) + gy) * stride;
+    const float bw = at[0] * expf(clip_nan(x.t[2], wh_clamp));
+    const float bh = at[na] * expf(clip_nan(x.t[3], wh_clamp));
+    const float bt = at[2 * na] + angle_range * tanhf(x.t[4]);
+    float4* o = (float4*)(out + (int64_t)row * 8);
+    o[0] = make_float4(bx * vf, by * vf, bw * vf, bh * vf);
+    o[1] = make_float4(bt * vf, (float)id, 0.0f, 0.0f);
   }
-  const float tx = __shfl_sync(kFull, field, 0);
-  const float ty = __shfl_sync(kFull, field, 1);
-  const float tw = __shfl_sync(kFull, field, 2);
-  const float th = __shfl_sync(kFull, field, 3);
-  const float tt = __shfl_sync(kFull, field, 4);
-  if (lane != 0) return;
-
-  const float gx = (float)(local % heads.width[h]);
-  const float gy = (float)(local / heads.width[h]);
-  const float stride = heads.stride[h];
-  const float vf = valid[row] ? 1.0f : 0.0f;
-  const float bx = (sigmoid(tx) + gx) * stride;
-  const float by = (sigmoid(ty) + gy) * stride;
-  const float bw =
-      heads.aw[h][a] * expf(fminf(fmaxf(tw, -wh_clamp), wh_clamp));
-  const float bh =
-      heads.ah[h][a] * expf(fminf(fmaxf(th, -wh_clamp), wh_clamp));
-  const float bt = heads.aa[h][a] + angle_range * tanhf(tt);
-  float4* o = (float4*)(out + (int64_t)row * 8);
-  o[0] = make_float4(bx * vf, by * vf, bw * vf, bh * vf);
-  o[1] = make_float4(bt * vf, nc > 1 ? (float)best_c : 0.0f, 0.0f, 0.0f);
 }
 
 }  // namespace
@@ -163,24 +262,20 @@ extern "C" int decode_rows_launch(
     heads.cells[h] = head_cells[h];
     heads.width[h] = head_width[h];
     heads.stride[h] = head_stride[h];
-    for (int a = 0; a < na; ++a) {
-      heads.aw[h][a] = anchors[(h * 3 + 0) * na + a];
-      heads.ah[h][a] = anchors[(h * 3 + 1) * na + a];
-      heads.aa[h][a] = anchors[(h * 3 + 2) * na + a];
-    }
     n_cells += head_cells[h];
   }
+  for (int e = 0; e < n_heads * 3 * na; ++e) heads.anchors[e] = anchors[e];
   heads.n = n_heads;
   const int rows = b * k;
-  const dim3 block(32, kWarpsPerBlock);
-  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  constexpr int kPerBlock = kThreads * kRowsPerThread;
+  const dim3 grid((unsigned)((rows + kPerBlock - 1) / kPerBlock));
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    decode_rows_kernel<true><<<grid, block, 0, s>>>(
+    decode_rows_kernel<true><<<grid, kThreads, 0, s>>>(
         heads, (const int*)idx, (const uint8_t*)valid, (float*)out, rows, k,
         c, na, nc, field_major, n_cells * na, angle_range, wh_clamp);
   } else {
-    decode_rows_kernel<false><<<grid, block, 0, s>>>(
+    decode_rows_kernel<false><<<grid, kThreads, 0, s>>>(
         heads, (const int*)idx, (const uint8_t*)valid, (float*)out, rows, k,
         c, na, nc, field_major, n_cells * na, angle_range, wh_clamp);
   }

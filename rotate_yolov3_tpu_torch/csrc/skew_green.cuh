@@ -1,10 +1,9 @@
 // Exact rotated-rectangle intersection, its IoU and the divide-free
 // greedy-NMS kill predicate. Device code shared by kernel B (skew_kill.cu),
 // kernel C (nms_greedy.cu) and kernel E (skew_iou_matrix.cu), so all three
-// decide every pair with the same arithmetic; kernels B and C also share
-// the pair-tile pass (PairTile, at the end). Three pair algos, each written
-// in the operation order of its plain version in the port (which follows
-// the reference):
+// decide every pair with the same arithmetic, and share the pair-tile pass
+// (PairTile, at the end). Three pair algos, each written in the operation
+// order of its plain version in the port (which follows the reference):
 //   kGreen       Green's-theorem slab clipping,
 //                rotate_yolov3_tpu/ops/skew_iou_green.py::inter_area_green;
 //   kGreen2      the same in B's rotated frame, inter_area_green_bframe;
@@ -568,6 +567,29 @@ __device__ __forceinline__ bool may_overlap(const Box& a, const Box& b) {
   return !(r < 0.0f || d2 > r * r);
 }
 
+// The near-pair test of kernel E, which writes values, not a predicate:
+// iou_may_overlap(a, b) is false only for a pair whose IoU every pair algo
+// computes as exactly +0. The pair is skipped iff d2 > R^2, R = rad_a +
+// rad_b, with no R < 0 clause:
+//   * both rad finite (each > 0): the pairs may_overlap skips, and no others.
+//     Their windows are all empty (the derivation above), so every edge term
+//     of green / green2 is +0 and the area nan_max(+0, 0) = +0; candidates
+//     accept fewer than 3 points and return +0. Both areas are >= 1e-6 > 0
+//     (sides >= kMinSide), so inter = nan_min(+0, min(A, B)) = +0 and IoU =
+//     +0 / (A + B - 0 + 1e-8) = +0, the value the kernel's zeroed tile holds;
+//   * one rad = -inf (a zero-area box): R = -inf, R^2 = +inf, and d2 > +inf
+//     is false (d2 = +inf or NaN included): the pair takes the geometry. Its
+//     value is not fixed without it: inter = nan_min(I, min(0, B)) is +0, -0,
+//     B < 0 or NaN, where the algo's I may itself be NaN (1/0 edges);
+//   * rad = +inf on either side: R = +inf or NaN, never skipped, as in
+//     may_overlap.
+__device__ __forceinline__ bool iou_may_overlap(const Box& a, const Box& b) {
+  const float dx = a.cx - b.cx, dy = a.cy - b.cy;
+  const float d2 = dx * dx + dy * dy;
+  const float r = a.rad + b.rad;
+  return !(d2 > r * r);
+}
+
 // Box idx of one image's (K, 5) boxes with its cos/sin and near-pair
 // radius; rows past k are zero-area padding.
 __device__ __forceinline__ void load_box(const float* boxes, const int* cls,
@@ -608,17 +630,20 @@ __device__ __forceinline__ bool kill_predicate(const T& a, const T& b,
   return inter * one_plus_thr > thr * (area_a + area_b);
 }
 
-// ---- pair tiles: the kill pass of kernels B (skew_kill.cu) and C -------
+// ---- pair tiles: the pair pass of kernels B (skew_kill.cu), C and E -----
 //
 // A block of kTileThreads threads owns a tile of kRows rows x kTileCols
 // columns of one image's pairs. Its box records (BoxRec, the per-box
 // quantities of the pair code) are formed once into shared memory
-// (tile_load); step 1 (tile_collect) tests every pair for j > i, class and
-// may_overlap (~15 operations) and appends the survivors to a pair list in
-// shared memory; step 2 (tile_drain) runs the geometry over that list
-// densely, so no lane idles on a culled pair, and reports each pair that
-// kills. Both kernels decide each pair with these same operations, so their
-// kill bits are equal.
+// (tile_load); step 1 (tile_collect_if) tests every pair with the kernel's
+// predicate (~15 operations) and appends the survivors to a pair list in
+// shared memory; step 2 (tile_drain_pairs) runs the geometry over that list
+// densely, so no lane idles on a culled pair. Kernels B and C test j > i,
+// class and may_overlap (tile_collect) and report each pair that kills
+// (tile_drain), so their kill bits are equal; kernel E tests the range, the
+// triangle and iou_may_overlap and stores each pair's IoU. The records of a
+// box do not depend on the tile, so every kernel and every tile height
+// computes a pair from the same values with the same operations.
 
 constexpr int kTileCols = 64;
 constexpr int kTileThreads = 256;
@@ -690,33 +715,47 @@ struct PairTile {
   int n_pairs;
 };
 
-// The records of columns col0.. and rows row0.. of one image's (k, 5) boxes
-// (threads tid < kTileCols + kRows), and an empty pair list. The caller
-// synchronises before tile_collect.
+// The records of rows row0.. of the (n, 5) boxes rows_b and of columns
+// col0.. of the (m, 5) boxes cols_b (threads tid < kTileCols + kRows; rows
+// past n or m are zero-area padding), and an empty pair list. The caller
+// synchronises before step 1.
 template <int kRows>
 __device__ __forceinline__ void tile_load(PairTile<kRows>& t,
-                                          const float* boxes_b,
-                                          const int* cls_b, int k, int row0,
-                                          int col0, int tid) {
+                                          const float* rows_b,
+                                          const int* rows_cls, int n,
+                                          const float* cols_b,
+                                          const int* cols_cls, int m,
+                                          int row0, int col0, int tid) {
   if (tid < kTileCols + kRows) {
     Box x;
     if (tid < kTileCols) {
-      load_box(boxes_b, cls_b, col0 + tid, k, &x);
+      load_box(cols_b, cols_cls, col0 + tid, m, &x);
       t.cols.put(tid, make_rec(x));
     } else {
-      load_box(boxes_b, cls_b, row0 + tid - kTileCols, k, &x);
+      load_box(rows_b, rows_cls, row0 + tid - kTileCols, n, &x);
       t.rows.put(tid - kTileCols, make_rec(x));
     }
   }
   if (tid == 0) t.n_pairs = 0;
 }
 
-// Step 1: each warp tests 32 neighbouring columns of one row per pass and
-// appends the live pairs (ballot, popc prefix, one shared atomic per warp).
+// Kernels B and C: rows and columns of one image's (k, 5) boxes.
 template <int kRows>
-__device__ __forceinline__ void tile_collect(PairTile<kRows>& t, int k,
-                                             int row0, int col0, float thr,
-                                             int tid) {
+__device__ __forceinline__ void tile_load(PairTile<kRows>& t,
+                                          const float* boxes_b,
+                                          const int* cls_b, int k, int row0,
+                                          int col0, int tid) {
+  tile_load(t, boxes_b, cls_b, k, boxes_b, cls_b, k, row0, col0, tid);
+}
+
+// Step 1: each warp tests 32 neighbouring columns of one row per pass with
+// live(rows, r, col, i, j) (the tile's row records, the row's index in the
+// tile, the column's box, and the pair's row and column in the image) and
+// appends the live pairs (ballot, popc prefix, one shared atomic per warp).
+template <int kRows, class Live>
+__device__ __forceinline__ void tile_collect_if(PairTile<kRows>& t, int row0,
+                                                int col0, int tid,
+                                                Live live_fn) {
   static_assert(kRows % kTileRowsPerPass == 0, "a pass covers 4 rows");
   const int lane = tid & 31;
   const int c = (tid / 32 % 2) * 32 + lane;   // this thread's column
@@ -725,8 +764,7 @@ __device__ __forceinline__ void tile_collect(PairTile<kRows>& t, int k,
   const unsigned lanes_below = (1u << lane) - 1u;
   for (int r = tid / kTileCols; r < kRows; r += kTileRowsPerPass) {
     const int i = row0 + r;
-    const bool live =
-        i < k && j < k && live_pair(t.rows.get_box(r), col, i, j, thr);
+    const bool live = live_fn(t.rows, r, col, i, j);
     const unsigned m = __ballot_sync(0xffffffffu, live);
     if (m == 0u) continue;                     // warp-uniform
     int base = 0;
@@ -738,39 +776,68 @@ __device__ __forceinline__ void tile_collect(PairTile<kRows>& t, int k,
   }
 }
 
-// Step 2: the listed pairs, densely; kill(r, c) for each pair that kills.
-template <int kAlgo, int kRows, class F>
-__device__ __forceinline__ void tile_drain(const PairTile<kRows>& t,
-                                           float thr, float one_plus_thr,
-                                           int tid, F kill) {
+// Step 1 of kernels B and C: j > i, in range, the same class and, for
+// thr >= 0, may_overlap.
+template <int kRows>
+__device__ __forceinline__ void tile_collect(PairTile<kRows>& t, int k,
+                                             int row0, int col0, float thr,
+                                             int tid) {
+  tile_collect_if(t, row0, col0, tid,
+                  [&](const TileBoxes<kRows>& rows, int r, const Box& col,
+                      int i, int j) {
+                    return i < k && j < k &&
+                           live_pair(rows.get_box(r), col, i, j, thr);
+                  });
+}
+
+// Step 2: the listed pairs, densely; pair(a, b, r, c) with the records of
+// row r and column c for each.
+template <int kRows, class F>
+__device__ __forceinline__ void tile_drain_pairs(const PairTile<kRows>& t,
+                                                 int tid, F pair) {
   const int n = t.n_pairs;
   for (int e = tid; e < n; e += kTileThreads) {
     const int p = t.pairs[e];
     const int pr = p >> 6, pc = p & (kTileCols - 1);
-    if (kill_predicate<kAlgo>(t.rows.get(pr), t.cols.get(pc), thr,
-                              one_plus_thr)) {
-      kill(pr, pc);
-    }
+    pair(t.rows.get(pr), t.cols.get(pc), pr, pc);
   }
 }
 
-// Tile height for b images of k boxes, from the live 64-row tiles per SM
-// (n64 = b T (T + 1) / 2 for T = ceil(k / 64) column tiles, the SM count
-// read from the current device): 16 rows below one per SM, 32 below four,
-// else 64. More, smaller blocks spread a dense image (every pair near)
-// over the card; larger tiles read fewer box records per pair, which
-// sparse images need.
-inline cudaError_t tile_rows(int64_t b, int k, int* rows) {
+// Step 2 of kernels B and C: kill(r, c) for each pair that kills.
+template <int kAlgo, int kRows, class F>
+__device__ __forceinline__ void tile_drain(const PairTile<kRows>& t,
+                                           float thr, float one_plus_thr,
+                                           int tid, F kill) {
+  tile_drain_pairs(t, tid,
+                   [&](const BoxRec& a, const BoxRec& b, int r, int c) {
+                     if (kill_predicate<kAlgo>(a, b, thr, one_plus_thr)) {
+                       kill(r, c);
+                     }
+                   });
+}
+
+// Tile height from the live 64-row tiles per SM (tile_rows: n64 = b T (T +
+// 1) / 2 for b images of k boxes, T = ceil(k / 64) column tiles; the SM
+// count read from the current device): short_rows (16 for kernels B and C)
+// below one per SM, 32 below four, else 64. More, smaller blocks spread a
+// dense image (every pair near) over the card; larger tiles read fewer box
+// records per pair, which sparse images need.
+inline cudaError_t tile_rows_for(int64_t n64, int* rows,
+                                 int short_rows = 16) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return err;
-  const int64_t nt = (k + kTileCols - 1) / kTileCols;
-  const int64_t n64 = b * nt * (nt + 1) / 2;
-  *rows = n64 < kShortPerSm * sms ? 16 : n64 < kHalfPerSm * sms ? 32 : 64;
+  *rows = n64 < kShortPerSm * sms ? short_rows
+          : n64 < kHalfPerSm * sms ? 32 : 64;
   return cudaSuccess;
+}
+
+inline cudaError_t tile_rows(int64_t b, int k, int* rows) {
+  const int64_t nt = (k + kTileCols - 1) / kTileCols;
+  return tile_rows_for(b * nt * (nt + 1) / 2, rows);
 }
 
 }  // namespace skew_green

@@ -63,7 +63,8 @@ class Detector:
         image, cross-class pairs zeroed, greedy keep of ``IoU > nms_thres``.
         ``ops.skew_iou_cuda.skew_iou_matrix_auto_nms`` (kernel E on the card,
         the argsort oracle on the CPU) and ``skew_iou_matrix`` (kernel E)
-        are drop-ins.
+        are drop-ins; these (and partials of them) are called once per
+        batch, one launch of kernel E.
       seed: seed of the random init used when no weights are given.
       approx_top_k: strided-bin top-k (``ops.topk.strided_topk``); None
         means strided on CUDA and exact on the CPU.

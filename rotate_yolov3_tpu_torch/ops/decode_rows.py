@@ -12,9 +12,11 @@ and anchor, and decodes:
     theta = anchor_angle + ANGLE_RANGE · tanh(t_theta)
 
 Out come (B, K, 8) f32 rows ``(cx, cy, w, h, theta, cls_id, 0, 0)``: the box
-fields zeroed where ``valid`` is False, the class id the first maximum of
-the raw class logits (strict ``>`` from class 1 on, as the reference; 0 when
-nc = 1) and kept on invalid rows.
+fields multiplied by 0 where ``valid`` is False, the class id kept on
+invalid rows. The class id follows the reference's loop: class 0 first, then
+class c wherever its raw logit is strictly greater than the best so far (0
+when nc = 1), so a NaN never wins, a NaN in class 0 pins the id to 0 and an
+all −inf row gives 0; the clip of tw, th keeps a NaN and takes ±inf to ±8.
 
 ``decode_rows`` launches the hand-written CUDA kernel (``csrc/decode_rows.cu``)
 on CUDA tensors; ``decode_rows_ref`` is its plain version (kernel A's plain
@@ -130,10 +132,14 @@ def decode_rows_ref(head_raws: Sequence[torch.Tensor], idx: torch.Tensor,
         off += m.n_cells
     boxes = _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v)[..., :5]
     boxes = boxes * valid.float()[..., None]
-    if nc > 1:
-        cls = torch.argmax(rows[..., 6:], dim=-1).float()
-    else:
-        cls = zf
+    cls = zf
+    if nc > 1:          # the reference's strict > from class 0 on
+        best = rows[..., 6]
+        for c in range(1, nc):
+            v = rows[..., 6 + c]
+            better = v > best
+            cls = torch.where(better, float(c), cls)
+            best = torch.where(better, v, best)
     return torch.cat([boxes, cls[..., None], zf[..., None], zf[..., None]],
                      dim=-1)
 

@@ -19,7 +19,9 @@ images instead of vmapped. The serving path, ``non_max_suppression_fused``:
 An ``iou_matrix_fn`` hook (e.g. kernel E, ``skew_iou_cuda.skew_iou_matrix``)
 takes precedence over both ``decode_kernel`` and ``fused_greedy``: it builds
 each image's (K, K) IoU matrix, cross-class pairs are zeroed and the greedy
-fixpoint thresholds ``IoU > thr``.
+fixpoint thresholds ``IoU > thr``. The port's own matrix functions build
+the whole batch's (B, K, K) in one call (one launch of kernel E), as the
+reference's vmap of the hook does; any other callable is called per image.
 
 ``non_max_suppression`` is the decoded-input entry: (B, N, 6+nc) rows from
 ``models.yolo_head.decode_all`` (``Detector.predict_raw``), the same keep
@@ -37,7 +39,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .nms_greedy import nms_greedy, nms_greedy_fused_ok
-from .skew_iou_cuda import check_algo, skew_kill_matrix
+from .skew_iou_cuda import (check_algo, skew_iou_matrix, skew_iou_matrix_auto,
+                            skew_iou_matrix_auto_nms, skew_iou_matrix_ref,
+                            skew_kill_matrix)
 from .topk import select_topk
 
 # fixpoint passes between two convergence checks (one host sync per check)
@@ -107,23 +111,38 @@ def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
     return valid & ~suppressed
 
 
-def _class_masked_iou(iou_matrix_fn: Callable, boxes: torch.Tensor,
-                      cls_id: torch.Tensor) -> torch.Tensor:
-    """One image's pairwise IoU with cross-class pairs zeroed."""
-    iou = iou_matrix_fn(boxes, boxes)
-    return torch.where(cls_id[:, None] == cls_id[None, :], iou,
-                       iou.new_zeros(()))
+# the port's IoU-matrix functions: each also takes (B, N, 5) x (B, M, 5)
+_BATCHED_IOU_FNS = (skew_iou_matrix, skew_iou_matrix_ref,
+                    skew_iou_matrix_auto, skew_iou_matrix_auto_nms)
+
+
+def takes_batches(iou_matrix_fn: Callable) -> bool:
+    """Whether the hook is one of the port's IoU-matrix functions, bare or a
+    ``functools.partial`` of one with keyword arguments only."""
+    fn = iou_matrix_fn
+    if isinstance(fn, functools.partial):
+        if fn.args:
+            return False
+        fn = fn.func
+    return any(fn is f for f in _BATCHED_IOU_FNS)
 
 
 def keep_iou_matrix(boxes, cls_id, valid, iou_thr: float,
                     iou_matrix_fn: Callable) -> torch.Tensor:
     """Keep through an IoU-matrix hook: ``iou_matrix_fn`` (N, 5) × (M, 5)
-    -> (N, M) called once per image, cross-class pairs zeroed when
-    ``cls_id`` is given, then the greedy fixpoint of ``IoU > thr``."""
-    iou = torch.stack([
-        iou_matrix_fn(boxes[i], boxes[i]) if cls_id is None
-        else _class_masked_iou(iou_matrix_fn, boxes[i], cls_id[i])
-        for i in range(boxes.shape[0])])
+    -> (N, M), cross-class pairs zeroed when ``cls_id`` is given, then the
+    greedy fixpoint of ``IoU > thr``. A hook that ``takes_batches`` is
+    called once on the (B, K, 5) boxes and each pair is computed as in the
+    per-image call, so the keep is the same; any other is called once per
+    image, the reference's hook contract."""
+    if takes_batches(iou_matrix_fn):
+        iou = iou_matrix_fn(boxes, boxes)
+    else:
+        iou = torch.stack([iou_matrix_fn(boxes[i], boxes[i])
+                           for i in range(boxes.shape[0])])
+    if cls_id is not None:
+        iou = torch.where(cls_id[:, :, None] == cls_id[:, None, :], iou,
+                          iou.new_zeros(()))
     return greedy_suppress_fixpoint(iou, valid, iou_thr)
 
 
@@ -263,8 +282,9 @@ def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.1,
       pred: (B, N, 6+nc) decoded rows (``models.yolo_head.decode_all``).
       conf_thres, nms_thres: score / IoU thresholds.
       max_det: padded per-image detection capacity.
-      iou_matrix_fn: pairwise-IoU hook, called once per image; None means
-        the kill mask of kernel B with pair algo ``iou_algo``.
+      iou_matrix_fn: pairwise-IoU hook, called once per image (once per
+        batch for the port's own matrix functions); None means the kill
+        mask of kernel B with pair algo ``iou_algo``.
     Returns:
       detections (B, max_det, 7) = (cx, cy, w, h, theta, score, class),
       sorted by score descending, and the keep mask (B, max_det).

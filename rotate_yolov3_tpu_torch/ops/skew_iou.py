@@ -113,5 +113,6 @@ def skew_iou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
 
 
 def skew_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise exact IoU matrix: (N, 5) x (M, 5) -> (N, M)."""
-    return skew_iou(a[:, None, :], b[None, :, :])
+    """Pairwise exact IoU matrix: (N, 5) x (M, 5) -> (N, M), or batched
+    (B, N, 5) x (B, M, 5) -> (B, N, M)."""
+    return skew_iou(a[..., :, None, :], b[..., None, :, :])

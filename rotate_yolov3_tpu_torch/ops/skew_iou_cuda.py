@@ -10,9 +10,10 @@ Counterpart of ``rotate_yolov3_tpu/ops/skew_iou_pallas.py``:
   The divide-free predicate is algebraically IoU > thr; it can differ from a
   thresholded IoU matrix only for pairs within FP rounding of ``thr``.
 * ``skew_iou_matrix`` (``skew_iou_matrix_pallas``): (N, 5) × (M, 5) →
-  (N, M) f32 ``inter / (A + B − inter + 1e-8)``. ``triangle=True`` zeroes
-  every entry with j ≤ i (greedy NMS reads only j > i; the reference leaves
-  that region unspecified).
+  (N, M) f32 ``inter / (A + B − inter + 1e-8)``, or (B, N, 5) × (B, M, 5)
+  → (B, N, M) in one launch (what ``jax.vmap`` makes of the reference's
+  kernel). ``triangle=True`` zeroes every entry with j ≤ i (greedy NMS reads
+  only j > i; the reference leaves that region unspecified).
 * ``skew_iou_matrix_auto`` and ``skew_iou_matrix_auto_nms``: the reference's
   ``iou_matrix_fn`` drop-ins, kernel E for a CUDA tensor and the argsort
   oracle (``ops.skew_iou.skew_iou_matrix``) for a CPU one, as the reference
@@ -222,7 +223,8 @@ def pair_inter_areas(a: torch.Tensor, b: torch.Tensor, algo: str = "green"):
 
 
 # --------------------------------------------------------------------------
-# the near-pair test of kernels B and C (may_overlap in csrc/skew_green.cuh)
+# the near-pair tests of kernels B, C (may_overlap in csrc/skew_green.cuh)
+# and E (iou_may_overlap)
 # --------------------------------------------------------------------------
 
 _RAD_REL, _RAD_COORD, _RAD_ABS = 1.0001, 1e-5, 1e-5
@@ -248,6 +250,19 @@ def near_radius(boxes: torch.Tensor) -> torch.Tensor:
     rad = torch.where(plain, rad, torch.full_like(rad, float("inf")))
     return torch.where(finite & (w * h == 0),
                        torch.full_like(rad, float("-inf")), rad)
+
+
+def iou_may_overlap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Broadcastable (..., 5) boxes -> (...) bool: False only where every
+    pair algo's IoU is exactly +0, as kernel E skips the pair (its zeroed
+    tile holds that value): both radii finite and d² > R². A zero-area box
+    (radius −inf) and a box with a non-finite, tiny or huge field (+inf)
+    keep every pair, since R² is then +inf or NaN (``iou_may_overlap`` in
+    ``csrc/skew_green.cuh``, with the derivation)."""
+    r = near_radius(a) + near_radius(b)
+    dx = a[..., 0].float() - b[..., 0].float()
+    dy = a[..., 1].float() - b[..., 1].float()
+    return ~(dx * dx + dy * dy > r * r)
 
 
 def pair_may_overlap(a: torch.Tensor, b: torch.Tensor,
@@ -361,23 +376,27 @@ skew_kill_matrix.algo_launches = dict.fromkeys(ALGOS, 0)
 
 def _check_pairs(a: torch.Tensor, b: torch.Tensor) -> None:
     for name, t in (("a", a), ("b", b)):
-        if t.ndim != 2 or t.shape[-1] != 5:
-            raise ValueError(f"skew_iou_matrix: {name} must be (N, 5), got "
-                             f"{tuple(t.shape)}")
+        if t.ndim not in (2, 3) or t.shape[-1] != 5:
+            raise ValueError(f"skew_iou_matrix: {name} must be (N, 5) or "
+                             f"(B, N, 5), got {tuple(t.shape)}")
         if not t.is_floating_point():
             raise TypeError(f"skew_iou_matrix: {name} must be floating "
                             f"point, got {t.dtype}")
+    if a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"skew_iou_matrix: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} differ in batch")
 
 
 def skew_iou_matrix_ref(a: torch.Tensor, b: torch.Tensor,
                         triangle: bool = False,
                         algo: str = "green") -> torch.Tensor:
     """Plain PyTorch version: (N, 5) × (M, 5) -> (N, M) f32 IoU by the pair
-    algo; ``triangle`` zeroes every entry with j <= i."""
+    algo, or (B, N, 5) × (B, M, 5) -> (B, N, M); ``triangle`` zeroes every
+    entry with j <= i."""
     _check_pairs(a, b)
     a, b = a.float(), b.float()
-    inter, area_a, area_b = pair_inter_areas(a[:, None, :], b[None, :, :],
-                                             algo)
+    inter, area_a, area_b = pair_inter_areas(a[..., :, None, :],
+                                             b[..., None, :, :], algo)
     iou = inter / (area_a + area_b - inter + _EPS)
     if triangle:
         iou = torch.where(torch.ones_like(iou, dtype=torch.bool).triu(1),
@@ -387,7 +406,7 @@ def skew_iou_matrix_ref(a: torch.Tensor, b: torch.Tensor,
 
 def _iou_launcher():
     fn = _build.load("skew_iou_matrix").skew_iou_matrix_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -395,9 +414,10 @@ def _iou_launcher():
 
 def skew_iou_matrix(a: torch.Tensor, b: torch.Tensor, triangle: bool = False,
                     algo: str = "green") -> torch.Tensor:
-    """Exact pairwise skew-IoU matrix (N, 5) × (M, 5) -> (N, M) f32: the
-    ``iou_matrix_fn`` drop-in. A CPU tensor takes the plain version; a CUDA
-    tensor launches kernel E, or raises."""
+    """Exact pairwise skew-IoU matrix (N, 5) × (M, 5) -> (N, M) f32, the
+    ``iou_matrix_fn`` drop-in, or (B, N, 5) × (B, M, 5) -> (B, N, M) in one
+    launch. A CPU tensor takes the plain version; a CUDA tensor launches
+    kernel E, or raises."""
     _check_pairs(a, b)
     algo_id = check_algo(algo)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -406,13 +426,15 @@ def skew_iou_matrix(a: torch.Tensor, b: torch.Tensor, triangle: bool = False,
         raise ValueError("skew_iou_matrix: a and b must lie on one CUDA "
                          "device")
     a, b = a.float().contiguous(), b.float().contiguous()
-    n, m = a.shape[0], b.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=a.device)
+    nb = a.shape[0] if a.ndim == 3 else 1
+    n, m = a.shape[-2], b.shape[-2]
+    out = torch.empty((*a.shape[:-2], n, m), dtype=torch.float32,
+                      device=a.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(a.device):
-        err = _iou_launcher()(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                              m, int(triangle), algo_id,
+        err = _iou_launcher()(a.data_ptr(), b.data_ptr(), out.data_ptr(), nb,
+                              n, m, int(triangle), algo_id,
                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"skew_iou_matrix kernel launch failed: CUDA "
@@ -427,7 +449,8 @@ skew_iou_matrix.algo_launches = dict.fromkeys(ALGOS, 0)
 
 
 def skew_iou_matrix_auto(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Kernel E on a CUDA tensor, the argsort oracle on a CPU one."""
+    """Kernel E on a CUDA tensor, the argsort oracle on a CPU one; (N, 5) ×
+    (M, 5) or batched (B, N, 5) × (B, M, 5)."""
     if a.device.type == "cuda":
         return skew_iou_matrix(a, b)
     return skew_iou_matrix_argsort(a, b)
@@ -438,7 +461,7 @@ def skew_iou_matrix_auto_nms(a: torch.Tensor, b: torch.Tensor
     """IoU matrix for greedy NMS: exact where j > i, the rest unspecified.
     Kernel E with ``triangle=True`` on a CUDA tensor (zero at and below the
     diagonal); the full argsort matrix on a CPU one. Greedy NMS reads only
-    j > i, so both give the same keep."""
+    j > i, so both give the same keep. (N, 5) × (M, 5) or batched."""
     if a.device.type == "cuda":
         return skew_iou_matrix(a, b, triangle=True)
     return skew_iou_matrix_argsort(a, b)
