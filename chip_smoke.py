@@ -86,6 +86,22 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      kernels, the plain versions and, in f32, the CPU path, on every image
      without a band pair. Then each option's per-call time at B = 128.
 
+ 13. the training path on the HRSC cfg (Darknet-53, na = 18, nc = 1) from
+     seeded random weights, images drawn with numpy (no cv2 anywhere): one
+     f32 train step (TF32 off) at B = 2, 256² on the card and on the CPU
+     from the same weights and batch (loss terms within
+     ``TRAIN_LOSS_RTOL``, grad norm within ``GRAD_NORM_RTOL``, the largest
+     difference of the updated params and BN state printed); the step at
+     B = 8, 608², f32 and bf16: ms/step, img/s, the forward / loss /
+     backward / optimizer split, peak memory, device busy share, top
+     kernels; a 20-step fit on one batch whose total loss must fall; the
+     training CLI (``rotate_yolov3_tpu_torch.train``, in-process) for one
+     epoch of 2 steps on 16 drawn 608² images read through the disk cache,
+     whose per-epoch eval must launch kernels A and B and write
+     results.txt, last/best .pt and .weights, with Detectors loaded from
+     last.weights and last.pt equal to the in-run eval Detector; and the
+     eval CLI (``rotate_yolov3_tpu_torch.test``) on those images with
+     last.weights, its host IoU from the native library.
 Every kernel's bound (``bound_ms``, ``bound_by``) is the larger of the fp32
 operations its inputs need over ``FP32_PEAK`` and its bytes over
 ``MEM_PEAK``; a pair's operations are counted in the SASS of probe kernels
@@ -157,6 +173,16 @@ KILL_LAYOUTS = ("uniform", "clustered", "all-overlap")
 KILL_SHAPES = ((B_CHECK, 128), (B_CHECK, 512), (B_BENCH, 128),
                (B_BENCH, 512))
 KILL_CHUNK = 16      # images per call of a plain version at B = B_BENCH
+# phase 13 (training): the step at full size and the CLIs' dataset, the
+# card-against-CPU step's (batch, size), the fit's steps, and the tolerances
+# of that step's loss terms and grad norm (f32 on both sides, TF32 off).
+# The grad norm sums the gradients of 75 train-mode BN layers, random init,
+# B = 2: f32 rounding moves it by ~1e-3 (each side's distance from a
+# float64 step is printed), so its tolerance is 3e-3.
+TRAIN_IMG, TRAIN_B, TRAIN_N_IMAGES = 608, 8, 16
+TRAIN_CHECK = (2, 256)
+TRAIN_FIT_STEPS = 20
+TRAIN_LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 3e-3
 
 # every kernel of the port, each pair algo of B, C and E its own entry:
 # name -> (source, the TPU kernel's pallas_call it replaces)
@@ -2022,6 +2048,331 @@ def phase_options(torch, card, results) -> None:
     del det, xb, heads, dets_bf16
 
 
+def _draw_ships(n: int, size: int, seed: int):
+    """``n`` seeded size² BGR uint8 images, each a noisy dark sea with 1-4
+    bright rotated rectangles (elongated, ship-like; numpy only), and their
+    (N, 6) label rows (cls, cx, cy, w, h normalized, θ radians)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(20, 60, (n, size, size, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    labels = []
+    for img in imgs:
+        rows = []
+        for _ in range(int(rng.integers(1, 5))):
+            w = rng.uniform(0.15, 0.4) * size
+            h = rng.uniform(0.04, 0.12) * size
+            cx, cy = rng.uniform(0.2, 0.8, 2) * size
+            th = rng.uniform(-np.pi / 2, np.pi / 2)
+            u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+            v = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
+            img[(np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)] = \
+                rng.integers(150, 256, 3)
+            rows.append((0, cx / size, cy / size, w / size, h / size, th))
+        labels.append(np.asarray(rows, np.float32))
+    return imgs, labels
+
+
+def _train_batch(torch, imgs, labels, max_gt: int = 64):
+    """(imgs, targets, valid) on DEVICE, padded as the loader pads."""
+    import numpy as np
+
+    tgts = np.zeros((len(imgs), max_gt, 6), np.float32)
+    valid = np.zeros((len(imgs), max_gt), bool)
+    for i, rows in enumerate(labels):
+        tgts[i, :len(rows)] = rows
+        valid[i, :len(rows)] = True
+    return tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in (np.ascontiguousarray(imgs[..., ::-1]), tgts,
+                           valid))
+
+
+def _write_dataset(root: str, imgs, labels) -> str:
+    """The images as the loader's disk cache finds them: an empty file at
+    each listed image path (only its mtime is read) and, newer than it, its
+    ``<img>.cache.npy`` sidecar, so no image is decoded; the label files,
+    the list and a .data file. Returns the .data path."""
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "labels"))
+    paths = []
+    for i, (img, rows) in enumerate(zip(imgs, labels)):
+        path = os.path.join(root, "images", f"im{i:04d}.jpg")
+        open(path, "wb").close()
+        os.utime(path, (time.time() - 60,) * 2)
+        np.save(path + ".cache.npy", img)
+        with open(os.path.join(root, "labels", f"im{i:04d}.txt"), "w") as f:
+            f.write("".join(f"{int(r[0])} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f} "
+                            f"{r[4]:.6f} {r[5]:.6f}\n" for r in rows))
+        paths.append(path)
+    list_path = os.path.join(root, "train.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    data = os.path.join(root, "ships.data")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntrain={list_path}\nvalid={list_path}\n"
+                f"names={os.path.join(ROOT, 'datacfg', 'hrsc.names')}\n")
+    return data
+
+
+def _staged_step(torch, ts, spec, hyp, imgs, tgts, valid):
+    """One train step as ``make_train_step`` runs it, with CUDA events
+    between its stages: ms of forward, loss (assignment included),
+    backward, optimizer (grad norm, lr, SGD update)."""
+    from rotate_yolov3_tpu_torch.train.loss import compute_loss
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    net, opt = ts.net, ts.optimizer
+    ev[0].record()
+    heads = [h.float() for h in net(imgs.to(torch.float32) / 255.0)]
+    ev[1].record()
+    total, _ = compute_loss(heads, tgts, valid, spec.yolo_specs,
+                            int(imgs.shape[1]), hyp)
+    ev[2].record()
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    ev[3].record()
+    torch.nn.utils.get_total_norm(
+        [t.grad for t in net.parameters() if t.grad is not None])
+    for group in opt.param_groups:
+        group["lr"] = ts.lr_schedule(ts.step)
+    opt.step()
+    ts.step += 1
+    ev[4].record()
+    ev[4].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def _f64_grad_norm(torch, spec, params, state, batch, hyp) -> float:
+    """The grad norm of one train step's loss computed in float64 on the
+    CPU (network, loss and backward): the reference the f32 grad norms of
+    the card and the CPU are measured against."""
+    from rotate_yolov3_tpu_torch.models.darknet import Darknet
+    from rotate_yolov3_tpu_torch.train.loss import compute_loss
+
+    f64 = torch.float64
+    net = Darknet(spec, params, state, compute_dtype=f64).to(f64).train()
+    imgs, tgts, valid = (t.cpu() for t in batch)
+    total, _ = compute_loss(net(imgs.to(f64) / 255.0), tgts.to(f64), valid,
+                            spec.yolo_specs, int(imgs.shape[1]), hyp)
+    total.backward()
+    return float(torch.nn.utils.get_total_norm(
+        [t.grad for t in net.parameters()]))
+
+
+def phase_train(torch, card) -> None:
+    """Phase 13: the training path and its eval (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from rotate_yolov3_tpu_torch import _build
+    from rotate_yolov3_tpu_torch import detector as detector_mod
+    from rotate_yolov3_tpu_torch import test as test_cli
+    from rotate_yolov3_tpu_torch import train as train_cli
+    from rotate_yolov3_tpu_torch.config.hyp import Hyp
+    from rotate_yolov3_tpu_torch.config.parse import parse_model_cfg
+    from rotate_yolov3_tpu_torch.eval import metrics
+    from rotate_yolov3_tpu_torch.models.darknet import (build_network,
+                                                        init_params)
+    from rotate_yolov3_tpu_torch.native import polyiou
+    from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_kill_matrix
+    from rotate_yolov3_tpu_torch.train.schedule import darknet_schedule
+    from rotate_yolov3_tpu_torch.train.trainer import (init_train_state,
+                                                       make_train_step)
+
+    hyp = Hyp()
+    fixed_lr = darknet_schedule(1e-3, burn_in=1)     # 1e-3 at every step
+    t0 = time.perf_counter()
+
+    # (a) one f32 step (TF32 off) from the same weights and batch on the
+    # card and on the CPU
+    b_chk, s_chk = TRAIN_CHECK
+    spec = build_network(parse_model_cfg(CFG), img_size=s_chk)
+    params, state = init_params(spec, seed=0)
+    imgs, labels = _draw_ships(b_chk, s_chk, seed=11)
+    batch = _train_batch(torch, imgs, labels)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            ts = init_train_state(spec, params, state, fixed_lr,
+                                  device=dev)
+            m = make_train_step(spec, hyp)(
+                ts, *(t.to(dev) for t in batch))
+            out[dev] = ({k: float(v) for k, v in m.items()},
+                        [{k: {n: t.cpu() for n, t in d.items()}
+                          for k, d in x.items()}
+                         for x in ts.net.params_state()])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    (mc, (pc, sc)), (mh, (ph, sh)) = out[DEVICE], out["cpu"]
+    for k, want in mh.items():
+        tol = GRAD_NORM_RTOL if k == "grad_norm" else TRAIN_LOSS_RTOL
+        if not abs(mc[k] - want) <= tol * abs(want) + 1e-7:
+            raise AssertionError(f"train step: {k} on the card {mc[k]} vs "
+                                 f"the CPU {want} (rtol {tol})")
+    gn64 = _f64_grad_norm(torch, spec, params, state, batch, hyp)
+    d_par = max(float((pc[k][n] - ph[k][n]).abs().max())
+                for k in pc for n in pc[k])
+    d_bn = max(float((sc[k][n] - sh[k][n]).abs().max())
+               for k in sc for n in sc[k])
+    log(f"train step f32 (TF32 off) B={b_chk} @{s_chk}, card vs CPU: "
+        + ", ".join(f"{k} {mc[k]:.6f}/{mh[k]:.6f}" for k in sorted(mh))
+        + f"; updated params max |diff| {d_par:.3g}, BN state {d_bn:.3g} "
+        f"(loss terms rtol {TRAIN_LOSS_RTOL}, grad_norm {GRAD_NORM_RTOL}); "
+        f"grad_norm in float64 on the CPU {gn64:.4f}: card f32 "
+        f"{mc['grad_norm'] / gn64 - 1:+.3e}, CPU f32 "
+        f"{mh['grad_norm'] / gn64 - 1:+.3e} from it [{card}]")
+
+    # (b) the step at full size, f32 (PyTorch's default: cuDNN may use
+    # TF32) and bf16
+    spec = build_network(parse_model_cfg(CFG), img_size=TRAIN_IMG)
+    params, state = init_params(spec, seed=0)
+    imgs, labels = _draw_ships(TRAIN_N_IMAGES, TRAIN_IMG, seed=12)
+    batch = _train_batch(torch, imgs[:TRAIN_B], labels[:TRAIN_B])
+    n_gt = int(batch[2].sum())
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        ts = init_train_state(spec, params, state, fixed_lr,
+                              compute_dtype=dtype, device=DEVICE)
+        step = make_train_step(spec, hyp)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: step(ts, *batch), reps=10, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = device_ms(torch, lambda: step(ts, *batch), reps=3)
+        stages = np.median([_staged_step(torch, ts, spec, hyp, *batch)
+                            for _ in range(10)], axis=0)
+        log(f"train step {name} B={TRAIN_B} @{TRAIN_IMG} ({n_gt} GT): "
+            f"{ms:.3f} ms/step (CUDA-event median of 10 after 3 warm-ups), "
+            f"{TRAIN_B / ms * 1e3:.2f} img/s; stages (median of 10, ms): "
+            f"forward {stages[0]:.3f}, loss {stages[1]:.3f}, backward "
+            f"{stages[2]:.3f}, optimizer {stages[3]:.3f}; device busy "
+            f"{busy:.3f} ms = {100 * busy / ms:.1f}% of the step; peak "
+            f"{peak:.2f} GiB [{card}]")
+        log(f"top kernels of one {name} step (device time): "
+            + top_kernels(torch, lambda: step(ts, *batch)) + f" [{card}]")
+        del ts, step
+
+    # (c) a short fit: 20 steps on one repeated batch, fixed lr 1e-3
+    ts = init_train_state(spec, params, state, fixed_lr, device=DEVICE)
+    step = make_train_step(spec, hyp)
+    totals = torch.stack([step(ts, *batch)["total"]
+                          for _ in range(TRAIN_FIT_STEPS)]).tolist()
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"fit: the total loss did not fall over "
+                             f"{TRAIN_FIT_STEPS} steps: {totals}")
+    log(f"fit f32 B={TRAIN_B} @{TRAIN_IMG}, {TRAIN_FIT_STEPS} steps on one "
+        f"batch, lr 1e-3: total {totals[0]:.4f} -> {totals[-1]:.4f} (min "
+        f"{min(totals):.4f}) [{card}]")
+    del ts, step, batch
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        data = _write_dataset(os.path.join(tmp, "ships"), imgs, labels)
+        out_dir = os.path.join(tmp, "w")
+
+        # (d) the training CLI in-process: 1 epoch of 2 steps with its
+        # per-epoch eval, the eval Detector recorded
+        made = []
+
+        class RecordingDetector(detector_mod.Detector):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        args = ["--cfg", CFG, "--data", data, "--epochs", "1",
+                "--batch-size", str(TRAIN_B), "--img-size", str(TRAIN_IMG),
+                "--no-augment", "--cache-images", "disk",
+                "--no-tensorboard", "--out-dir", out_dir, "--device", DEVICE]
+        gather_rows.launches = 0
+        skew_kill_matrix.launches = 0
+        detector_cls = detector_mod.Detector
+        detector_mod.Detector = RecordingDetector
+        try:
+            t1 = time.perf_counter()
+            best = train_cli.train(train_cli.make_parser().parse_args(args))
+            torch.cuda.synchronize()
+            t_cli = time.perf_counter() - t1
+        finally:
+            detector_mod.Detector = detector_cls
+        launches = {"gather_rows": gather_rows.launches,
+                    "skew_kill": skew_kill_matrix.launches}
+        if min(launches.values()) < 1 or len(made) != 1:
+            raise AssertionError(f"train CLI: the eval's kernels did not "
+                                 f"launch ({launches}) or no eval Detector "
+                                 f"({len(made)})")
+        files = ("results.txt", "last.pt", "last.weights", "best.pt",
+                 "best.weights", os.path.join("ckpt", "1.pt"))
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(out_dir, f))]
+        if missing:
+            raise AssertionError(f"train CLI did not write {missing}")
+        with open(os.path.join(out_dir, "results.txt")) as f:
+            row = f.read().split()
+        x = torch.from_numpy(np.ascontiguousarray(imgs[:TRAIN_B, ..., ::-1]))
+        d_run, m_run = made[0](x)
+        for ckpt in ("last.weights", "last.pt"):
+            fresh = detector_cls(
+                CFG, weights=os.path.join(out_dir, ckpt),
+                img_size=TRAIN_IMG, conf_thres=0.1, device=DEVICE)
+            d, m = fresh(x)
+            if not (torch.equal(m, m_run) and torch.equal(d, d_run)):
+                w = max(float((a - b).abs().max()) for a, b in zip(
+                    fresh.net.parameters(), made[0].net.parameters()))
+                h = max(float((a - b).abs().max()) for a, b in zip(
+                    fresh.heads(x), made[0].heads(x)))
+                again = made[0](x)
+                raise AssertionError(
+                    f"train CLI: a Detector loaded from {ckpt} differs from "
+                    f"the in-run eval Detector: fused weights max |diff| "
+                    f"{w:.3g}, heads {h:.3g}, masks differ at "
+                    f"{int((m != m_run).sum())}, dets max |diff| "
+                    f"{float((d - d_run).abs().max()):.3g}; the in-run "
+                    f"Detector equal to itself: "
+                    f"{torch.equal(again[0], d_run)}")
+        log(f"train CLI f32 B={TRAIN_B} @{TRAIN_IMG}, 1 epoch of "
+            f"{TRAIN_N_IMAGES // TRAIN_B} steps + eval of {TRAIN_N_IMAGES} "
+            f"images: {t_cli:.1f} s; results.txt {' '.join(row)}; best mAP "
+            f"{best:.4f}; eval launches {launches}; Detectors from "
+            f"last.weights and last.pt equal to the in-run eval Detector "
+            f"({int(m_run.sum())} kept) [{card}]")
+
+        # (e) the eval CLI on the same images with last.weights; the host
+        # IoU must come from the native library
+        polyiou.get_lib()
+        calls = [0]
+        host_iou = metrics._cross_iou_host
+
+        def counting(a, b):
+            calls[0] += 1
+            return host_iou(a, b)
+
+        fallbacks = host_iou.fallbacks
+        metrics._cross_iou_host = counting
+        try:
+            mp, mr, mAP = test_cli.test(test_cli.make_parser().parse_args(
+                ["--cfg", CFG, "--data", data, "--weights",
+                 os.path.join(out_dir, "last.weights"), "--img-size",
+                 str(TRAIN_IMG), "--conf-thres", "0.01", "--cache-images",
+                 "disk", "--device", DEVICE]))
+        finally:
+            metrics._cross_iou_host = host_iou
+        if calls[0] < 1 or host_iou.fallbacks != fallbacks:
+            raise AssertionError(f"test CLI: host IoU calls {calls[0]}, "
+                                 f"fallbacks {host_iou.fallbacks - fallbacks}")
+        log(f"test CLI @{TRAIN_IMG} on {TRAIN_N_IMAGES} images (conf 0.01): "
+            f"P {mp:.4f} R {mr:.4f} mAP {mAP:.4f}; {calls[0]} host IoU "
+            f"matrices, all native [{card}]")
+    log(f"phase train: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -2056,6 +2407,7 @@ def main() -> int:
     run(phase_pair_algos, torch, card, results)
     run(phase_decode, torch, card, results)
     run(phase_options, torch, card, results)
+    run(phase_train, torch, card)
     log("seconds by phase: " + ", ".join(seconds))
 
     kernels = []

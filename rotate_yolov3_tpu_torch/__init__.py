@@ -10,9 +10,12 @@ wrapper runs its plain PyTorch version instead.
 Ported so far: the serving path of ``Detector`` (cfg and ``.weights``
 loading, the BN-folded Darknet, score-first top-k, gathered decode with the
 row-gather kernel, rotated NMS with the skew-IoU kill-mask kernel or the
-fused greedy-NMS kernel), ``python -m rotate_yolov3_tpu_torch.detect``, and
+fused greedy-NMS kernel), ``python -m rotate_yolov3_tpu_torch.detect``;
 the DOTA tool chain with its on-device tile pipeline, ``python -m
-rotate_yolov3_tpu_torch.dota``.
+rotate_yolov3_tpu_torch.dota``; the data pipeline, evaluation (``python -m
+rotate_yolov3_tpu_torch.test``) and training with the skew-IoU loss and
+``.pt``/``.weights`` checkpoints (``python -m
+rotate_yolov3_tpu_torch.train``).
 """
 
 __version__ = "0.1.0"

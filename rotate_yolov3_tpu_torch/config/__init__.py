@@ -1,1 +1,1 @@
-"""Darknet .cfg/.data parsing."""
+"""Darknet .cfg/.data parsing and the training hyperparameters."""

@@ -1,1 +1,2 @@
-"""Letterbox, inference input iterators and the DOTA tool chain."""
+"""Letterbox, inference input iterators, the training dataset and its
+augmentation, the synthetic dataset writer and the DOTA tool chain."""

@@ -22,22 +22,29 @@ def letterbox(img: np.ndarray, new_shape: int = 608,
     """Resize HWC uint8 image to (new_shape, new_shape) preserving aspect.
 
     Returns (letterboxed image, ratio, (pad_x, pad_y)); the inverse map for
-    detections is ``ops.boxes.scale_coords_rotated``.
+    detections is ``ops.boxes.scale_coords_rotated``. cv2 is needed only
+    for a resize; the constant padding is numpy, equal to the reference's
+    ``cv2.copyMakeBorder`` (``color`` filling the first channels, 0 the
+    rest, as cv2 fills from its 4-value scalar).
     """
-    import cv2
-
     h, w = img.shape[:2]
     ratio = min(new_shape / h, new_shape / w)
     new_w, new_h = int(round(w * ratio)), int(round(h * ratio))
     if (new_w, new_h) != (w, h):
+        import cv2
+
         img = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
     pad_x = (new_shape - new_w) / 2
     pad_y = (new_shape - new_h) / 2
     top, bottom = int(round(pad_y - 0.1)), int(round(pad_y + 0.1))
     left, right = int(round(pad_x - 0.1)), int(round(pad_x + 0.1))
-    img = cv2.copyMakeBorder(img, top, bottom, left, right,
-                             cv2.BORDER_CONSTANT, value=color)
-    return img, ratio, (left, top)
+    out = np.empty((new_h + top + bottom, new_w + left + right)
+                   + img.shape[2:], img.dtype)
+    fill = np.zeros(4)
+    fill[:len(color)] = color
+    out[...] = fill[:img.shape[2]] if img.ndim == 3 else fill[0]
+    out[top:top + new_h, left:left + new_w] = img
+    return out, ratio, (left, top)
 
 
 def letterbox_torch(img, new_shape: int = 608):

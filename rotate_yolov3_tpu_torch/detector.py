@@ -29,14 +29,16 @@ from .ops.rotated_nms import non_max_suppression_fused
 from .ops.skew_iou_cuda import check_algo
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``: "cuda" raises without a card (no
+    fallback to the CPU), and only "cuda" and "cpu" are accepted."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"Detector(device={str(device)!r}): no CUDA device is available "
+            f"device={str(device)!r}: no CUDA device is available "
             f"(use device='cpu' for the plain-PyTorch path)")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"Detector: unsupported device {device!r}")
+        raise ValueError(f"unsupported device {device!r}")
     return dev
 
 
@@ -97,7 +99,7 @@ class Detector:
         check_algo(iou_algo)
         self.iou_algo = iou_algo
         self.iou_matrix_fn = iou_matrix_fn
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.spec: NetworkSpec = build_network(
             parse_model_cfg(cfg_path), img_size=img_size)
         self.img_size = self.spec.img_size
@@ -133,14 +135,20 @@ class Detector:
 
     def refresh_params(self, params=None, state=None) -> None:
         """Rebuild the fused network: BN fold, 1/255 fold into the first
-        conv, field-major head permutation — all on the f32 kernels — then
-        the cast to the compute dtype and the move to the device."""
+        conv, field-major head permutation — all on the f32 kernels, on the
+        detector's device (so the fused weights depend only on the values
+        given, wherever they lie: a detector refreshed from a trainer's
+        card tensors equals one loaded from its saved file) — then the
+        cast to the compute dtype."""
         if params is not None:
             self.params = params
         if state is not None:
             self.state = state
+        params, state = ({k: {n: t.to(self.device) for n, t in d.items()}
+                          for k, d in tree.items()}
+                         for tree in (self.params, self.state))
         fused = {k: dict(v) for k, v in
-                 fuse_bn(self.spec, self.params, self.state).items()}
+                 fuse_bn(self.spec, params, state).items()}
         # conv is linear: the input normalisation folds into the first
         # kernel (bias untouched), so the net consumes raw 0..255 pixels
         first = layer_key(self.spec.conv_specs[0].index)
@@ -148,11 +156,10 @@ class Detector:
         if self.field_major_heads:
             for ys in self.spec.yolo_specs:
                 key = layer_key(ys.index - 1)
-                perm = torch.from_numpy(field_major_perm(ys))
+                perm = torch.from_numpy(field_major_perm(ys)).to(self.device)
                 fused[key]["kernel"] = fused[key]["kernel"][perm]
                 fused[key]["bias"] = fused[key]["bias"][perm]
-        self.net = FusedDarknet(self.spec, fused).to(
-            device=self.device, dtype=self.compute_dtype)
+        self.net = FusedDarknet(self.spec, fused).to(dtype=self.compute_dtype)
 
     def _images(self, images) -> torch.Tensor:
         x = torch.as_tensor(images)

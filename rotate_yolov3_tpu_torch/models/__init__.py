@@ -1,1 +1,2 @@
-"""Darknet network, .weights IO and the rotated YOLO head."""
+"""Darknet network (fused inference and trainable), checkpoint IO and the
+rotated YOLO head."""

@@ -10,7 +10,9 @@ the JAX package's layout, while the convolutions run on NCHW views in
 
 Params are dicts keyed like the reference (``layer_000``...): ``kernel``
 (OIHW) plus ``bn_scale``/``bn_bias`` or ``bias``; ``state`` holds
-``bn_mean``/``bn_var``. Train-mode BN waits for the training port.
+``bn_mean``/``bn_var``. ``FusedDarknet`` is the BN-folded inference forward;
+``Darknet`` the trainable one (``Conv2d`` + ``BatchNorm2d`` per conv layer,
+train-mode batch statistics), which reads and returns the same dicts.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 _BN_EPS = 1e-5
+_BN_UPDATE = 0.1        # running = (1-u)*running + u*batch
 _LEAKY_SLOPE = 0.1
 
 
@@ -283,6 +286,44 @@ def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation}")
 
 
+def _walk(spec: NetworkSpec, x: torch.Tensor, conv) -> List[torch.Tensor]:
+    """The network walk on an NCHW ``x``: ``conv(layer, x)`` runs one conv
+    layer (conv, BN or bias, activation); shortcuts, routes, upsamples and
+    max-pools are the same in every forward. Returns the head maps as
+    (B, H, W, na·no) views, in YOLO-layer order."""
+    cache: Dict[int, torch.Tensor] = {}
+    heads: List[torch.Tensor] = []
+    routs = set(spec.routs)
+    for layer in spec.layers:
+        i = layer.index
+        if isinstance(layer, ConvSpec):
+            x = conv(layer, x)
+        elif isinstance(layer, ShortcutSpec):
+            x = x + cache[layer.frm]
+        elif isinstance(layer, RouteSpec):
+            if len(layer.layers) == 1:
+                x = cache[layer.layers[0]]
+            else:
+                x = torch.cat([cache[l] for l in layer.layers], dim=1)
+        elif isinstance(layer, UpsampleSpec):
+            x = F.interpolate(x, scale_factor=layer.stride, mode="nearest")
+        elif isinstance(layer, MaxPoolSpec):
+            x = _maxpool(x, layer.size, layer.stride)
+        elif isinstance(layer, YoloSpec):
+            heads.append(x.permute(0, 2, 3, 1))
+        if i in routs:
+            cache[i] = x
+    return heads
+
+
+def _conv2d(layer: ConvSpec, x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor]) -> torch.Tensor:
+    if layer.pad is None:
+        return F.conv2d(x, w, b, layer.stride, layer.size // 2)
+    (top, bottom), (left, right) = layer.pad
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, layer.stride)
+
+
 class FusedDarknet(nn.Module):
     """Inference-only forward with BN pre-folded (see ``fuse_bn``).
 
@@ -297,43 +338,105 @@ class FusedDarknet(nn.Module):
         self.biases = nn.ParameterDict()
         for layer in spec.conv_specs:
             key = layer_key(layer.index)
+            # copies: the module never shares storage with the dicts given
+            # (a trainer's live tensors, for one)
             self.kernels[key] = nn.Parameter(
-                fused[key]["kernel"].contiguous(
-                    memory_format=torch.channels_last), requires_grad=False)
-            self.biases[key] = nn.Parameter(fused[key]["bias"].contiguous(),
+                fused[key]["kernel"].clone(memory_format=torch.channels_last),
+                requires_grad=False)
+            self.biases[key] = nn.Parameter(fused[key]["bias"].clone(),
                                             requires_grad=False)
 
+    def _conv(self, layer: ConvSpec, x: torch.Tensor) -> torch.Tensor:
+        key = layer_key(layer.index)
+        x = _conv2d(layer, x, self.kernels[key], self.biases[key])
+        return _activate(x, layer.activation)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = x.permute(0, 3, 1, 2)          # NCHW view, channels_last memory
-        cache: Dict[int, torch.Tensor] = {}
-        heads: List[torch.Tensor] = []
-        routs = set(self.spec.routs)
-        for layer in self.spec.layers:
-            i = layer.index
-            if isinstance(layer, ConvSpec):
-                key = layer_key(i)
-                w, b = self.kernels[key], self.biases[key]
-                if layer.pad is None:
-                    x = F.conv2d(x, w, b, layer.stride, layer.size // 2)
+        # NCHW view, channels_last memory
+        return _walk(self.spec, x.permute(0, 3, 1, 2), self._conv)
+
+
+class Darknet(nn.Module):
+    """The trainable network: per conv layer an ``nn.Conv2d`` (bias only
+    without BN) and, with BN, an ``nn.BatchNorm2d(momentum=0.1, eps=1e-5)``
+    — the reference's train-mode BN: normalisation by the biased batch
+    variance, running variance updated with the unbiased one. Parameters
+    are f32 masters in ``channels_last`` memory.
+
+    ``forward`` takes (B, H, W, C) float images and returns the raw head
+    maps (B, H, W, na·no), anchor-major channels (the loss's layout), in
+    ``compute_dtype``. With bfloat16 each kernel (and bias) is cast to
+    bfloat16 inside its conv, as the reference casts
+    (``rotate_yolov3_tpu/models/darknet.py:298``)
+    — explicit casts, no autocast; BN runs as ``F.batch_norm`` on the
+    bfloat16 conv output with the f32 parameters and statistics: batch
+    statistics and the affine in f32 inside the op, the output rounded
+    once to bfloat16, where the reference applies the affine in bfloat16
+    with f32-computed scalars (within one bfloat16 rounding of it).
+
+    ``params_state()`` returns the ``layer_key`` (params, state) dicts of
+    the current weights (detached views), which ``fuse_bn``,
+    ``Detector.refresh_params`` and the checkpoint writers take.
+    """
+
+    def __init__(self, spec: NetworkSpec, params: Dict, state: Dict,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.spec = spec
+        self.compute_dtype = compute_dtype
+        self.convs = nn.ModuleDict()
+        self.bns = nn.ModuleDict()
+        for layer in spec.conv_specs:
+            key = layer_key(layer.index)
+            self.convs[key] = nn.Conv2d(layer.in_c, layer.out_c, layer.size,
+                                        layer.stride, bias=not layer.bn)
+            if layer.bn:
+                self.bns[key] = nn.BatchNorm2d(layer.out_c, eps=_BN_EPS,
+                                               momentum=_BN_UPDATE)
+        with torch.no_grad():
+            for key, conv in self.convs.items():
+                conv.weight.copy_(params[key]["kernel"])
+                if key in self.bns:
+                    bn = self.bns[key]
+                    bn.weight.copy_(params[key]["bn_scale"])
+                    bn.bias.copy_(params[key]["bn_bias"])
+                    bn.running_mean.copy_(state[key]["bn_mean"])
+                    bn.running_var.copy_(state[key]["bn_var"])
                 else:
-                    (top, bottom), (left, right) = layer.pad
-                    x = F.conv2d(F.pad(x, (left, right, top, bottom)), w, b,
-                                 layer.stride)
-                x = _activate(x, layer.activation)
-            elif isinstance(layer, ShortcutSpec):
-                x = x + cache[layer.frm]
-            elif isinstance(layer, RouteSpec):
-                if len(layer.layers) == 1:
-                    x = cache[layer.layers[0]]
-                else:
-                    x = torch.cat([cache[l] for l in layer.layers], dim=1)
-            elif isinstance(layer, UpsampleSpec):
-                x = F.interpolate(x, scale_factor=layer.stride,
-                                  mode="nearest")
-            elif isinstance(layer, MaxPoolSpec):
-                x = _maxpool(x, layer.size, layer.stride)
-            elif isinstance(layer, YoloSpec):
-                heads.append(x.permute(0, 2, 3, 1))
-            if i in routs:
-                cache[i] = x
-        return heads
+                    conv.bias.copy_(params[key]["bias"])
+        self.to(memory_format=torch.channels_last)
+
+    def params_state(self) -> Tuple[Dict[str, Dict[str, torch.Tensor]],
+                                    Dict[str, Dict[str, torch.Tensor]]]:
+        """The current (params, state) as ``layer_key`` dicts of detached
+        views of the module's tensors (no copies)."""
+        params: Dict[str, Dict[str, torch.Tensor]] = {}
+        state: Dict[str, Dict[str, torch.Tensor]] = {}
+        for key, conv in self.convs.items():
+            p = {"kernel": conv.weight.detach()}
+            if key in self.bns:
+                bn = self.bns[key]
+                p["bn_scale"] = bn.weight.detach()
+                p["bn_bias"] = bn.bias.detach()
+                state[key] = {"bn_mean": bn.running_mean.detach(),
+                              "bn_var": bn.running_var.detach()}
+            else:
+                p["bias"] = conv.bias.detach()
+            params[key] = p
+        return params, state
+
+    def _conv(self, layer: ConvSpec, x: torch.Tensor) -> torch.Tensor:
+        key = layer_key(layer.index)
+        conv, dt = self.convs[key], self.compute_dtype
+        if key in self.bns:
+            bn = self.bns[key]
+            x = _conv2d(layer, x, conv.weight.to(dt), None)
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, self.training, bn.momentum, bn.eps)
+        else:
+            x = _conv2d(layer, x, conv.weight.to(dt), conv.bias.to(dt))
+        return _activate(x, layer.activation)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        return _walk(self.spec, x, self._conv)

@@ -39,29 +39,39 @@ def head_anchors(spec: YoloSpec) -> Tuple[np.ndarray, np.ndarray]:
     return np.repeat(wh, n_ang, axis=0), np.tile(ang, n_wh)
 
 
-def decode_head(raw: torch.Tensor, spec: YoloSpec) -> torch.Tensor:
-    """Decode one head's raw map into (B, H*W*na, 6+nc) rows: cx, cy, w, h
-    (net-input pixels), theta (radians), obj, per-class probabilities."""
+def reshape_head(raw: torch.Tensor, spec: YoloSpec) -> torch.Tensor:
+    """(B, H, W, na*no) -> (B, H, W, na, no): the anchor-major view of a
+    head map that the loss reads."""
     b, h, w, c = raw.shape
     assert c == spec.na * spec.no, (c, spec.na, spec.no)
-    p = raw.reshape(b, h, w, spec.na, spec.no)
-    anchors_wh, anchor_angles = head_anchors(spec)
-    awh = torch.from_numpy(anchors_wh).to(raw.device)
-    aang = torch.from_numpy(anchor_angles).to(raw.device)
+    return raw.reshape(b, h, w, spec.na, spec.no)
 
+
+def decode_boxes_grid(p: torch.Tensor, spec: YoloSpec) -> torch.Tensor:
+    """Decode only the boxes of a head view: (B, H, W, na, no) -> (B, H, W,
+    na, 5) pixel boxes (cx, cy, w, h, theta), keeping the grid layout."""
+    b, h, w, na, no = p.shape
+    awh, aang = anchor_tables(spec, p.device)
     gy, gx = torch.meshgrid(
         torch.arange(h, dtype=p.dtype, device=p.device),
         torch.arange(w, dtype=p.dtype, device=p.device), indexing="ij")
     grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
-
     xy = (torch.sigmoid(p[..., 0:2]) + grid) * spec.stride
     wh = awh[None, None, None] * torch.exp(
         torch.clamp(p[..., 2:4], -_WH_CLAMP, _WH_CLAMP))
     theta = (aang[None, None, None]
              + ANGLE_RANGE * torch.tanh(p[..., 4]))[..., None]
+    return torch.cat([xy, wh, theta], dim=-1)
+
+
+def decode_head(raw: torch.Tensor, spec: YoloSpec) -> torch.Tensor:
+    """Decode one head's raw map into (B, H*W*na, 6+nc) rows: cx, cy, w, h
+    (net-input pixels), theta (radians), obj, per-class probabilities."""
+    p = reshape_head(raw, spec)
+    b, h, w = p.shape[:3]
     obj = torch.sigmoid(p[..., 5:6])
     cls = torch.sigmoid(p[..., 6:])
-    out = torch.cat([xy, wh, theta, obj, cls], dim=-1)
+    out = torch.cat([decode_boxes_grid(p, spec), obj, cls], dim=-1)
     return out.reshape(b, h * w * spec.na, spec.no)
 
 
@@ -109,8 +119,8 @@ def head_scores(raw: torch.Tensor, spec: YoloSpec,
 
 
 @functools.lru_cache(maxsize=64)
-def _anchor_tables(spec: YoloSpec, device: torch.device
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def anchor_tables(spec: YoloSpec, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A head's (na, 2) anchor w/h and (na,) angles on ``device``, built
     once per (spec, device), so no call copies them from the host. Callers
     only read them."""
@@ -165,7 +175,7 @@ def decode_gathered(head_raws: Sequence[torch.Tensor],
         gx = torch.where(in_h, (local % w).float(), gx)
         gy = torch.where(in_h, torch.div(local, w, rounding_mode="floor")
                          .float(), gy)
-        awh_t, aang_t = _anchor_tables(s, idx.device)
+        awh_t, aang_t = anchor_tables(s, idx.device)
         aw_v = torch.where(in_h, awh_t[a_idx, 0], aw_v)
         ah_v = torch.where(in_h, awh_t[a_idx, 1], ah_v)
         aang_v = torch.where(in_h, aang_t[a_idx], aang_v)

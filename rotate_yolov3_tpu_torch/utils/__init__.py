@@ -1,1 +1,1 @@
-"""Drawing helpers."""
+"""Drawing helpers and the training-metrics writer."""
