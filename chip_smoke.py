@@ -102,6 +102,28 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      last.weights and last.pt equal to the in-run eval Detector; and the
      eval CLI (``rotate_yolov3_tpu_torch.test``) on those images with
      last.weights, its host IoU from the native library.
+ 14. data parallelism and on-device augmentation: (a) ``augment_batch``'s
+     ops (``data.augment_device``) on the card against the CPU on the same
+     draws, B = 8, 608², f32, images and labels within ``AUG_TOL``, and its
+     ms per batch; (b) the train step with ``device_aug`` at B = 8, 608²,
+     f32 and bf16, ms/step beside the plain step's, and one epoch of the
+     train CLI with ``--device-aug``; (c) two gloo ranks sharing the card
+     (NCCL refuses two ranks on one GPU) run the HRSC cfg at 608², B = 8
+     global, f32 with TF32 off: the first step on a batch whose halves are
+     equal (so each rank's loss normalisation is the whole batch's) against
+     one process's B = 8 step (loss terms ``TRAIN_LOSS_RTOL``, grad norm
+     ``GRAD_NORM_RTOL``), the second on 8 distinct images, after which the
+     ranks' parameters and BN state must be bit-equal; (d) one NCCL rank
+     against the plain step (and, with two or more cards, N = device_count
+     (at most 4) NCCL ranks against one process); (e) a ``Detector`` with
+     two replicas on the one card (its internal ``mesh`` set to the list
+     ``make_mesh`` returns on two cards) against one replica on the same
+     slices at B = 128, 608², bf16, masks and detections equal, kernels A
+     and B launched once per replica, img/s of both, and the sharded DOTA
+     scene of phase 7 (N = 2, f32, TF32 off) against the single pipeline,
+     merged masks equal, rows within 1e-5; (f) with one card,
+     ``Detector(devices=2)`` and ``train --devices 2`` must raise; (g)
+     ``parallel.dryrun.dryrun_multichip(1, "cuda")``.
 Every kernel's bound (``bound_ms``, ``bound_by``) is the larger of the fp32
 operations its inputs need over ``FP32_PEAK`` and its bytes over
 ``MEM_PEAK``; a pair's operations are counted in the SASS of probe kernels
@@ -183,6 +205,9 @@ TRAIN_IMG, TRAIN_B, TRAIN_N_IMAGES = 608, 8, 16
 TRAIN_CHECK = (2, 256)
 TRAIN_FIT_STEPS = 20
 TRAIN_LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 3e-3
+# phase 14: images in [0, 1] and normalized labels of the card's
+# augmentation against the CPU's on the same draws
+AUG_TOL = 1e-5
 
 # every kernel of the port, each pair algo of B, C and E its own entry:
 # name -> (source, the TPU kernel's pallas_call it replaces)
@@ -2373,6 +2398,310 @@ def phase_train(torch, card) -> None:
     log(f"phase train: {time.perf_counter() - t0:.1f} s")
 
 
+def _aug_batch(torch, n: int, size: int, seed: int, dev):
+    """(imgs f32 in [0, 1], targets, valid) of ``n`` drawn ship images on
+    ``dev``."""
+    imgs, labels = _draw_ships(n, size, seed)
+    u8, tgts, valid = _train_batch(torch, imgs, labels)
+    return (u8.to(dev).float() / 255.0, tgts.to(dev), valid.to(dev))
+
+
+def _no_tf32(torch):
+    """Turn TF32 off (cuDNN and matmul); returns the flags to restore."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return old
+
+
+def _metrics_close(got: dict, want: dict, what: str) -> None:
+    for k, w in want.items():
+        tol = GRAD_NORM_RTOL if k == "grad_norm" else TRAIN_LOSS_RTOL
+        if not abs(got[k] - w) <= tol * abs(w) + 1e-7:
+            raise AssertionError(f"{what}: {k} {got[k]} vs one process {w} "
+                                 f"(rtol {tol})")
+
+
+def _one_process_step(torch, spec, params, state, batch, dev) -> dict:
+    """Metrics of one f32 plain train step at ``DP_LR`` (as
+    ``dp_train_steps`` runs it) on ``dev``."""
+    from rotate_yolov3_tpu_torch.config.hyp import Hyp
+    from rotate_yolov3_tpu_torch.parallel.dryrun import DP_LR
+    from rotate_yolov3_tpu_torch.train.schedule import darknet_schedule
+    from rotate_yolov3_tpu_torch.train.trainer import (init_train_state,
+                                                       make_train_step)
+
+    ts = init_train_state(spec, params, state,
+                          darknet_schedule(DP_LR, burn_in=1), momentum=0.9,
+                          weight_decay=5e-4, device=dev)
+    m = make_train_step(spec, Hyp())(ts, *(t.to(dev) for t in batch))
+    return {k: float(v) for k, v in m.items()}
+
+
+def phase_parallel(torch, card) -> None:
+    """Phase 14: data parallelism and on-device augmentation (see the module
+    docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from rotate_yolov3_tpu_torch import _build
+    from rotate_yolov3_tpu_torch import train as train_cli
+    from rotate_yolov3_tpu_torch.config.hyp import Hyp
+    from rotate_yolov3_tpu_torch.config.parse import parse_model_cfg
+    from rotate_yolov3_tpu_torch.data import augment_device as aug
+    from rotate_yolov3_tpu_torch.data.dota.device_tiles import \
+        DeviceTilePipeline
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.models.darknet import (build_network,
+                                                        init_params)
+    from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_kill_matrix
+    from rotate_yolov3_tpu_torch.parallel.dryrun import (dp_train_steps,
+                                                         dryrun_multichip)
+    from rotate_yolov3_tpu_torch.parallel.mesh import make_mesh
+    from rotate_yolov3_tpu_torch.train.schedule import darknet_schedule
+    from rotate_yolov3_tpu_torch.train.trainer import (init_train_state,
+                                                       make_train_step)
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE, 0)
+    hyp = Hyp()
+    n_cards = torch.cuda.device_count()
+
+    # (a) the augmentation on the card against the CPU, same draws
+    x, tgts, valid = _aug_batch(torch, TRAIN_B, TRAIN_IMG, 21, dev)
+    draws = aug.draw_augment(torch.Generator().manual_seed(3), TRAIN_B,
+                             TRAIN_IMG, Hyp(degrees=60.0))
+    card_draws = aug.AugDraws(**{k: None if v is None else v.to(dev)
+                                 for k, v in vars(draws).items()})
+    old = _no_tf32(torch)
+    try:
+        got = aug.apply_augment(card_draws, x, tgts, valid)
+        want = aug.apply_augment(draws, x.cpu(), tgts.cpu(), valid.cpu())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    err = [float((g.cpu() - w).abs().max()) for g, w in zip(got[:2],
+                                                            want[:2])]
+    if max(err) > AUG_TOL or not torch.equal(got[2].cpu(), want[2]):
+        raise AssertionError(f"augment_batch on the card vs the CPU: images "
+                             f"{err[0]:.3g}, labels {err[1]:.3g} (tol "
+                             f"{AUG_TOL}), valid equal "
+                             f"{torch.equal(got[2].cpu(), want[2])}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ms_apply = time_ms(torch, lambda: aug.apply_augment(card_draws, x, tgts,
+                                                        valid), reps=10)
+    ms_full = time_ms(torch, lambda: aug.augment_batch(gen, x, tgts, valid,
+                                                       hyp), reps=10)
+    log(f"augment_batch B={TRAIN_B} @{TRAIN_IMG} f32 (mosaic, rotation, "
+        f"scale/translate, flip, HSV): card vs CPU on the same draws max "
+        f"|diff| images {err[0]:.3g}, labels {err[1]:.3g}, valid equal; "
+        f"{ms_apply:.3f} ms per batch applied, {ms_full:.3f} ms drawn and "
+        f"applied (CUDA-event median of 10) [{card}]")
+
+    # (b) the train step with on-device augmentation beside the plain one
+    spec = build_network(parse_model_cfg(CFG), img_size=TRAIN_IMG)
+    params, state = init_params(spec, seed=0)
+    imgs, labels = _draw_ships(TRAIN_N_IMAGES, TRAIN_IMG, seed=12)
+    batch = _train_batch(torch, imgs[:TRAIN_B], labels[:TRAIN_B])
+    fixed_lr = darknet_schedule(1e-3, burn_in=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        ms = {}
+        for device_aug in (False, True):
+            ts = init_train_state(spec, params, state, fixed_lr,
+                                  compute_dtype=dtype, device=DEVICE)
+            step = make_train_step(spec, hyp, device_aug=device_aug)
+            total = float(step(ts, *batch)["total"])
+            if not np.isfinite(total):
+                raise AssertionError(f"device_aug={device_aug} step: loss "
+                                     f"{total}")
+            ms[device_aug] = time_ms(torch, lambda: step(ts, *batch),
+                                     reps=10, warmup=2)
+            del ts, step
+        log(f"train step {str(dtype)[6:]} B={TRAIN_B} @{TRAIN_IMG}: "
+            f"{ms[True]:.3f} ms/step with --device-aug, {ms[False]:.3f} "
+            f"without (CUDA-event median of 10) [{card}]")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        data = _write_dataset(os.path.join(tmp, "ships"), imgs, labels)
+        out_dir = os.path.join(tmp, "w")
+        t1 = time.perf_counter()
+        train_cli.train(train_cli.make_parser().parse_args(
+            ["--cfg", CFG, "--data", data, "--epochs", "1", "--batch-size",
+             str(TRAIN_B), "--img-size", str(TRAIN_IMG), "--device-aug",
+             "--cache-images", "disk", "--no-eval", "--no-tensorboard",
+             "--out-dir", out_dir, "--device", DEVICE]))
+        t_cli = time.perf_counter() - t1
+        with open(os.path.join(out_dir, "results.txt")) as f:
+            row = [float(v) for v in f.read().split()]
+        if not (np.isfinite(row).all() and row[5] > 0 and os.path.exists(
+                os.path.join(out_dir, "last.weights"))):
+            raise AssertionError(f"train CLI --device-aug: {row}")
+    log(f"train CLI --device-aug f32 B={TRAIN_B} @{TRAIN_IMG}, 1 epoch of "
+        f"{TRAIN_N_IMAGES // TRAIN_B} steps: {t_cli:.1f} s; results.txt "
+        f"{' '.join(f'{v:g}' for v in row)} [{card}]")
+
+    # (c) two gloo ranks on the one card against one process, f32, no TF32
+    dp_imgs, dp_labels = _draw_ships(TRAIN_B // 2, TRAIN_IMG, seed=13)
+    equal_halves = _train_batch(torch, np.concatenate([dp_imgs, dp_imgs]),
+                                dp_labels + dp_labels)
+    distinct = _train_batch(torch, imgs[TRAIN_B:2 * TRAIN_B],
+                            labels[TRAIN_B:2 * TRAIN_B])
+    host = [tuple(t.cpu() for t in b) for b in (equal_halves, distinct)]
+    old = _no_tf32(torch)
+    try:
+        want = _one_process_step(torch, spec, params, state, host[0], dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    t1 = time.perf_counter()
+    ranks = dp_train_steps([dev, dev], CFG, TRAIN_IMG, params, state, host,
+                           backend="gloo", timeout=600.0)
+    t_dp = time.perf_counter() - t1
+    for r, out in enumerate(ranks):
+        _metrics_close(out["metrics"][0], want, f"gloo rank {r} on one card")
+    unequal = [f"{tree}.{k}.{n}" for tree in ("params", "state")
+               for k, d in ranks[0][tree].items() for n, t in d.items()
+               if not torch.equal(t, ranks[1][tree][k][n])]
+    if unequal or ranks[0]["step"] != 2:
+        raise AssertionError(f"gloo ranks after 2 steps: step "
+                             f"{ranks[0]['step']}, differ in {unequal[:5]}")
+    log(f"data parallel, 2 gloo ranks on one card (CUDA tensors through "
+        f"gloo), f32 TF32 off, B={TRAIN_B} global @{TRAIN_IMG}: step 1 vs "
+        f"one process " + ", ".join(
+            f"{k} {ranks[0]['metrics'][0][k]:.6f}/{want[k]:.6f}"
+            for k in sorted(want))
+        + f"; after 2 steps the ranks' params and BN state are bit-equal; "
+        f"{t_dp:.1f} s with spawning [{card}]")
+
+    # (d) NCCL: one rank (and, with more cards, every card up to 4)
+    b_chk, s_chk = TRAIN_CHECK
+    small = build_network(parse_model_cfg(CFG), img_size=s_chk)
+    sp, ss = init_params(small, seed=0)
+    ship_imgs, ship_labels = _draw_ships(b_chk, s_chk, seed=14)
+    for n in sorted({1, min(n_cards, 4)}):
+        reps = max(1, n)
+        batch_n = tuple(t.cpu() for t in _train_batch(
+            torch, np.concatenate([ship_imgs] * reps), ship_labels * reps))
+        old = _no_tf32(torch)
+        try:
+            want = _one_process_step(torch, small, sp, ss, batch_n, dev)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = old
+        ranks = dp_train_steps(make_mesh(n, DEVICE), CFG, s_chk, sp, ss,
+                               [batch_n], backend="nccl", timeout=300.0)
+        for r, out in enumerate(ranks):
+            _metrics_close(out["metrics"][0], want, f"NCCL rank {r} of {n}")
+        log(f"data parallel, {n} NCCL rank(s) (of {n_cards} card(s)), f32 "
+            f"TF32 off, B={b_chk * reps} @{s_chk}: step vs one process "
+            + ", ".join(f"{k} {ranks[0]['metrics'][0][k]:.6f}/{want[k]:.6f}"
+                        for k in sorted(want)) + f" [{card}]")
+
+    # (e) Detector and DOTA replicas, two on the one card
+    two = [dev, dev]     # what make_mesh(2, "cuda") returns on two cards
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xb = torch.randint(0, 256, (B_BENCH, 608, 608, 3), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    one = Detector(CFG, conf_thres=CONF, nms_thres=THR, max_det=128,
+                   compute_dtype=torch.bfloat16, seed=0, device=DEVICE)
+    rep = Detector(CFG, conf_thres=CONF, nms_thres=THR, max_det=128,
+                   compute_dtype=torch.bfloat16, seed=0, device=DEVICE)
+    rep.mesh, rep.device = two, dev
+    rep.refresh_params()
+    half = B_BENCH // 2
+    d1, m1 = (torch.cat(t) for t in zip(one(xb[:half]), one(xb[half:])))
+    gather_rows.launches = 0
+    skew_kill_matrix.launches = 0
+    d2, m2 = rep(xb)
+    launches = {"gather_rows": gather_rows.launches,
+                "skew_kill": skew_kill_matrix.launches}
+    if launches != {"gather_rows": 2, "skew_kill": 2}:
+        raise AssertionError(f"Detector replicas: launches {launches}, want "
+                             f"one of kernels A and B per replica")
+    if not torch.equal(m1, m2) or not torch.equal(d1, d2):
+        raise AssertionError(f"Detector replicas vs one replica on the same "
+                             f"slices: masks differ at "
+                             f"{int((m1 != m2).sum())}, dets max |diff| "
+                             f"{float((d1 - d2).abs().max()):.3g}")
+    d128, m128 = one(xb)
+    ms_one = time_ms(torch, lambda: one(xb), reps=5, warmup=1)
+    ms_rep = time_ms(torch, lambda: rep(xb), reps=5, warmup=1)
+    log(f"Detector bf16 B={B_BENCH} @608, two replicas sharing one card "
+        f"(not scaling): masks and dets equal to one replica on the same "
+        f"slices ({int(m2.sum())} kept), kernel launches per replica "
+        f"{ {k: v // 2 for k, v in launches.items()} }; against one B="
+        f"{B_BENCH} call: masks differ at {int((m128 != m2).sum())}; "
+        f"{B_BENCH / ms_one * 1e3:.2f} img/s one replica, "
+        f"{B_BENCH / ms_rep * 1e3:.2f} img/s two replicas [{card}]")
+    del one, rep, xb
+
+    scene = _dota_scene()
+    old = _no_tf32(torch)
+    try:
+        pipes = []
+        for mesh in ([dev], two):
+            det = Detector(DOTA_CFG, img_size=NET_IMG, conf_thres=CONF,
+                           max_det=512, approx_top_k=False, seed=0,
+                           device=DEVICE)
+            det.mesh, det.device = mesh, dev
+            det.refresh_params()
+            pipes.append(DeviceTilePipeline(det, subsize=1024, gap=200,
+                                            merge_nms_thres=MERGE_THR,
+                                            max_merged=1024))
+        d1, m1 = pipes[0](scene)
+        gather_rows.launches = 0
+        skew_kill_matrix.launches = 0
+        nms_greedy.launches = 0
+        d2, m2 = pipes[1](scene)
+        launches = {"gather_rows": gather_rows.launches,
+                    "skew_kill": skew_kill_matrix.launches,
+                    "nms_greedy": nms_greedy.launches}
+        ms = [time_ms(torch, lambda p=p: p(scene), reps=3, warmup=1)
+              for p in pipes]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    err = float(np.abs(d1 - d2).max())
+    if launches != {"gather_rows": 2, "skew_kill": 2, "nms_greedy": 1} or \
+            not np.array_equal(m1, m2) or err > 1e-5:
+        raise AssertionError(f"sharded DOTA scene: launches {launches}, "
+                             f"masks differ at {int((m1 != m2).sum())}, "
+                             f"rows max |diff| {err:.3g}")
+    log(f"DOTA scene f32 (TF32 off), {pipes[0].num_tiles(SCENE, SCENE)} "
+        f"tiles over two replicas sharing one card (padded to "
+        f"{-(-pipes[0].num_tiles(SCENE, SCENE) // 2) * 2}): merged masks "
+        f"equal ({int(m2.sum())} kept), rows max |diff| {err:.3g}; launches "
+        f"{launches}; {ms[0]:.3f} ms one replica, {ms[1]:.3f} ms two "
+        f"[{card}]")
+    del pipes, det
+
+    # (f) refusals past the card count
+    if n_cards == 1:
+        for what, fn in (
+                ("Detector(devices=2)", lambda: Detector(
+                    CFG, devices=2, device=DEVICE)),
+                ("train --devices 2", lambda: train_cli.train(
+                    train_cli.make_parser().parse_args(
+                        ["--cfg", CFG, "--data", "unused.data",
+                         "--devices", "2", "--device", DEVICE])))):
+            try:
+                fn()
+            except ValueError as e:
+                log(f"{what} on one card raises: {e}")
+            else:
+                raise AssertionError(f"{what} did not raise on one card")
+    else:
+        log(f"{n_cards} cards: the one-card refusals do not apply")
+
+    # (g) the dry run on one card
+    loss = dryrun_multichip(1, DEVICE)
+    log(f"dryrun_multichip(1, cuda): loss {loss:.4f} [{card}]")
+    log(f"phase parallel: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -2408,6 +2737,7 @@ def main() -> int:
     run(phase_decode, torch, card, results)
     run(phase_options, torch, card, results)
     run(phase_train, torch, card)
+    run(phase_parallel, torch, card)
     log("seconds by phase: " + ", ".join(seconds))
 
     kernels = []

@@ -17,9 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -34,6 +35,10 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "skew_iou_matrix": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# a Detector's replicas launch kernels from one thread each: the first
+# build of a library and the launch counters are shared between them
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 # name -> (build seconds, nvcc/ptxas report) for libraries built in this
 # process; a library found already built is absent
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
@@ -75,6 +80,12 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        return lib if lib is not None else _build_and_load(name)
+
+
+def _build_and_load(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     key = digest(name)
     path = BUILD_DIR / f"lib{name}-{key}.so"
@@ -95,6 +106,15 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     _LIBS[name] = lib
     return lib
+
+
+def count_launch(wrapper, algo: Optional[str] = None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``wrapper.algo_launches[
+    algo]``), the count of launches of a kernel wrapper."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if algo is not None:
+            wrapper.algo_launches[algo] += 1
 
 
 def kernel_names() -> Tuple[str, ...]:

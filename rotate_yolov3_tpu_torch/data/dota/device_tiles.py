@@ -26,9 +26,14 @@ detector's device:
 Fixed shapes everywhere: the only capacity approximation against the host
 merge is ``max_merged``. Source images are bucketed: (H, W) pads up to the
 next multiple of the tile stride (``subsize - gap``). PyTorch runs eagerly,
-so nothing is compiled or cached per bucket. Tile parallelism over several
-devices (``Detector(devices=N)``) is not ported yet (ROADMAP queue 1,
-item 12).
+so nothing is compiled or cached per bucket.
+
+**Tile parallelism.** With a ``Detector(devices=N)`` the (T, sub, sub, 3)
+tile stack is padded with zero tiles to a multiple of N before the
+letterbox, stage 3 runs on the detector's N replicas (kernels A and B on
+each), the padded tiles' detections are dropped, and stages 4-5 (kernel C)
+run on the first device, where the detector gathers its results. The
+merged detections equal the single-device pipeline's.
 """
 
 from __future__ import annotations
@@ -92,22 +97,27 @@ class DeviceTilePipeline:
         return padded
 
     def letterbox_tiles(self, img: torch.Tensor):
-        """Stages 1-2: (HP, WP, 3) uint8 bucket -> letterboxed (T, S, S, 3)
-        f32 tiles, ratio, pad and the (T, 2) f32 tile origins."""
+        """Stages 1-2: (HP, WP, 3) uint8 bucket -> letterboxed (T', S, S, 3)
+        f32 tiles, ratio, pad and the (T, 2) f32 tile origins. T' is T
+        padded with zero tiles to a multiple of the detector's devices."""
         hp, wp = img.shape[:2]
         sub = self.subsize
         origins = tile_origins(wp, hp, sub, self.gap)
-        tiles = torch.stack([img[y0:y0 + sub, x0:x0 + sub]
-                             for (x0, y0) in origins])
-        lb, ratio, pad = letterbox_torch(tiles, self.det.img_size)
+        tiles = [img[y0:y0 + sub, x0:x0 + sub] for (x0, y0) in origins]
+        n = len(self.det.mesh)
+        tiles += [torch.zeros_like(tiles[0])] * (-len(tiles) % n)
+        lb, ratio, pad = letterbox_torch(torch.stack(tiles),
+                                         self.det.img_size)
         org = torch.tensor(origins, dtype=torch.float32, device=img.device)
         return lb, ratio, pad, org
 
     def select(self, dets, mask, ratio, pad, org):
-        """Stage 4 and the top-k of stage 5: per-tile (T, max_det, 7)
-        detections and mask -> source coordinates -> the m best rows over
-        all tiles. Returns (m, 7) rows, (m,) validity and (m,) flat
+        """Stage 4 and the top-k of stage 5: per-tile (T', max_det, 7)
+        detections and mask (the T tiles of ``org`` first; padding tiles
+        after them are dropped) -> source coordinates -> the m best rows
+        over all tiles. Returns (m, 7) rows, (m,) validity and (m,) flat
         indices."""
+        dets, mask = dets[:len(org)], mask[:len(org)]
         dets = scale_coords_rotated(dets, ratio, pad)
         cx = dets[..., 0] + org[:, 0, None]
         cy = dets[..., 1] + org[:, 1, None]

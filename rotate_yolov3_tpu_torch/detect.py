@@ -28,10 +28,6 @@ def detect(opt):
     from .ops.boxes import scale_coords_rotated
     from .utils.plotting import draw_detections
 
-    if opt.devices and opt.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1: data parallelism is not ported yet (ROADMAP "
-            "queue 1, item 12)")
     names = None
     if opt.data:
         data_cfg = parse_data_cfg(opt.data)
@@ -41,7 +37,7 @@ def detect(opt):
     det = Detector(
         opt.cfg, weights=opt.weights or None, img_size=opt.img_size,
         conf_thres=opt.conf_thres, nms_thres=opt.nms_thres,
-        max_det=opt.max_det,
+        max_det=opt.max_det, devices=opt.devices,
         compute_dtype=torch.bfloat16 if opt.bf16 else torch.float32,
         approx_top_k=False if opt.exact_topk else None, device=opt.device)
     on_cuda = det.device.type == "cuda"
@@ -129,7 +125,8 @@ def make_parser():
     p.add_argument("--no-save", action="store_true",
                    help="skip writing annotated images")
     p.add_argument("--devices", type=int, default=0,
-                   help="data-parallel devices (only 0/1 are ported)")
+                   help="data-parallel over N devices (0 = single); "
+                        "--batch-size must divide by N")
     p.add_argument("--exact-topk", action="store_true",
                    help="exact pre-NMS top-k (default: strided-bin top-k "
                         "on CUDA, exact on the CPU; see ops/topk.py)")

@@ -1,4 +1,4 @@
-"""High-level detection API: uint8 images -> rotated detections on one device.
+"""High-level detection API: uint8 images -> rotated detections.
 
 Torch counterpart of ``rotate_yolov3_tpu/detector.py``: the BN-folded
 Darknet forward (1/255 folded into the first conv, head convs permuted to
@@ -7,15 +7,25 @@ and the two-stage rotated NMS (kernel B with pair algo ``iou_algo``, then
 the greedy fixpoint), or the NMS through an ``iou_matrix_fn`` hook (e.g.
 kernel E), all on the ``device`` the detector was built for.
 
+``devices=N`` is the reference's data-parallel inference: one replica of
+the fused weights per device of ``parallel.mesh.make_mesh(N, device)``,
+the batch split contiguously over them, each replica's detections on its
+device, the results gathered on the first. Replicas run in one thread each
+(as ``torch.nn.parallel.parallel_apply`` runs them): the NMS's greedy
+fixpoint waits on its device between passes, and in one thread those waits
+would serialise the replicas.
+
 The reference's ``bake_params`` (closing the XLA program over the weights)
 has no PyTorch counterpart — PyTorch runs eagerly — and is dropped.
-Not ported yet, and refused with ``NotImplementedError``: ``devices > 1``
-(data parallelism) and ``packed_stem=True`` (see ROADMAP.md).
+Not ported yet, and refused with ``NotImplementedError``:
+``packed_stem=True`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +37,7 @@ from .models.weights_io import load_weights_file
 from .models.yolo_head import decode_all, field_major_perm
 from .ops.rotated_nms import non_max_suppression_fused
 from .ops.skew_iou_cuda import check_algo
+from .parallel.mesh import make_mesh
 
 
 def resolve_device(device) -> torch.device:
@@ -43,7 +54,7 @@ def resolve_device(device) -> torch.device:
 
 
 class Detector:
-    """Rotated-object detector on one device.
+    """Rotated-object detector on one device, or data-parallel on several.
 
         det = Detector("cfg/yolov3-rotate-hrsc.cfg", weights="model.weights")
         boxes, mask = det(images)   # (B,H,W,3) uint8 -> (B,K,7), (B,K)
@@ -76,6 +87,9 @@ class Detector:
         (Green's-theorem slab clipping), "green2" (the same in B's rotated
         frame) or "candidates" (24 candidates, 8-slot rank sort). All exact;
         an unknown name raises ValueError.
+      devices: more than 1: data-parallel over the first ``devices``
+        cards (``make_mesh``; more than there are raises ``ValueError``),
+        or as many replicas on the CPU; a call's batch must divide by it.
       device: "cuda" (default) or "cpu". CUDA without a card raises.
     """
 
@@ -88,10 +102,6 @@ class Detector:
                  approx_top_k: Optional[bool] = None,
                  field_major_heads: bool = True,
                  iou_algo: str = "green", device="cuda"):
-        if devices and devices > 1:
-            raise NotImplementedError(
-                "Detector(devices>1): data parallelism is not ported yet "
-                "(ROADMAP queue 1, item 12)")
         if packed_stem:
             raise NotImplementedError(
                 "Detector(packed_stem=True) is not ported yet (ROADMAP "
@@ -100,6 +110,11 @@ class Detector:
         self.iou_algo = iou_algo
         self.iou_matrix_fn = iou_matrix_fn
         self.device = resolve_device(device)
+        # the replicas' devices; the first holds the gathered results
+        self.mesh: List[torch.device] = [self.device]
+        if devices and devices > 1:
+            self.mesh = make_mesh(devices, self.device)
+            self.device = self.mesh[0]
         self.spec: NetworkSpec = build_network(
             parse_model_cfg(cfg_path), img_size=img_size)
         self.img_size = self.spec.img_size
@@ -139,7 +154,8 @@ class Detector:
         detector's device (so the fused weights depend only on the values
         given, wherever they lie: a detector refreshed from a trainer's
         card tensors equals one loaded from its saved file) — then the
-        cast to the compute dtype."""
+        cast to the compute dtype, and a copy on every other device of
+        ``mesh``."""
         if params is not None:
             self.params = params
         if state is not None:
@@ -160,8 +176,15 @@ class Detector:
                 fused[key]["kernel"] = fused[key]["kernel"][perm]
                 fused[key]["bias"] = fused[key]["bias"][perm]
         self.net = FusedDarknet(self.spec, fused).to(dtype=self.compute_dtype)
+        nets = {self.device: self.net}
+        for dev in self.mesh:
+            if dev not in nets:
+                nets[dev] = FusedDarknet(self.spec, {
+                    k: {n: t.to(dev) for n, t in d.items()}
+                    for k, d in fused.items()}).to(dtype=self.compute_dtype)
+        self.nets = [nets[dev] for dev in self.mesh]
 
-    def _images(self, images) -> torch.Tensor:
+    def _images(self, images, device=None) -> torch.Tensor:
         x = torch.as_tensor(images)
         if x.ndim == 3:
             x = x[None]
@@ -169,7 +192,8 @@ class Detector:
             raise ValueError(
                 f"expected {self.img_size}x{self.img_size} letterboxed "
                 f"input, got {tuple(x.shape)}; use data.letterbox first")
-        return x.to(self.device, non_blocking=True).to(self.compute_dtype)
+        return x.to(device or self.device,
+                    non_blocking=True).to(self.compute_dtype)
 
     @torch.inference_mode()
     def heads(self, images):
@@ -177,15 +201,41 @@ class Detector:
         channels when ``field_major_heads``)."""
         return self.net(self._images(images))
 
-    @torch.inference_mode()
     def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Run detection on (B, H, W, 3) images (uint8 or float 0-255)."""
-        heads = self.net(self._images(images))
-        return non_max_suppression_fused(
-            heads, self.spec.yolo_specs, conf_thres=self.conf_thres,
-            nms_thres=self.nms_thres, max_det=self.max_det,
-            iou_matrix_fn=self.iou_matrix_fn, approx_top_k=self.approx_top_k,
-            field_major=self.field_major_heads, iou_algo=self.iou_algo)
+        """Run detection on (B, H, W, 3) images (uint8 or float 0-255).
+        With several devices, B must divide by their number: replica r
+        takes the r-th contiguous slice."""
+        if len(self.mesh) == 1:
+            return self._detect(self.net, images, self.device)
+        x = torch.as_tensor(images)
+        x = x[None] if x.ndim == 3 else x
+        n = len(self.mesh)
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} not divisible by {n} "
+                             f"devices")
+        parts = x.chunk(n)
+        with ThreadPoolExecutor(max_workers=n) as pool:
+            futures = [pool.submit(self._detect, net, part, dev)
+                       for net, part, dev in zip(self.nets, parts,
+                                                 self.mesh)]
+            outs = [f.result() for f in futures]
+        return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                     for i in range(2))
+
+    @torch.inference_mode()
+    def _detect(self, net: FusedDarknet, images, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One replica's detections of ``images`` on ``device`` (every
+        kernel launches under that device, on its current stream)."""
+        x = self._images(images, device)
+        with torch.cuda.device(x.device) if x.is_cuda else nullcontext():
+            heads = net(x)
+            return non_max_suppression_fused(
+                heads, self.spec.yolo_specs, conf_thres=self.conf_thres,
+                nms_thres=self.nms_thres, max_det=self.max_det,
+                iou_matrix_fn=self.iou_matrix_fn,
+                approx_top_k=self.approx_top_k,
+                field_major=self.field_major_heads, iou_algo=self.iou_algo)
 
     @torch.inference_mode()
     def predict_raw(self, images) -> torch.Tensor:

@@ -189,8 +189,8 @@ def make_parser():
     pd.add_argument("--nms-thres", type=float, default=0.4)
     pd.add_argument("--max-det", type=int, default=512)
     pd.add_argument("--devices", type=int, default=0,
-                    help="shard tile batches over N devices (only 0/1 are "
-                         "ported)")
+                    help="shard tile batches over N devices (0 = single); "
+                         "with --tiles, --batch-size must divide by N")
     pd.add_argument("--approx-topk", action="store_true",
                     help="strided-bin pre-NMS top-k (ops/topk.py) for "
                          "throughput; the default is exact ranking")

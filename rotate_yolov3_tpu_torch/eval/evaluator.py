@@ -6,10 +6,13 @@ card), match to the ground truth by skew-IoU >= ``iou_thr``, report
 per-class P/R/AP and mAP. Called by the ``test`` CLI and by the training
 CLI once per epoch.
 
-The reference pads a ragged last batch to the full batch size so its
-compiled detector sees one shape; each image's detections do not depend on
-the others in its batch, and PyTorch runs any batch size, so the port
-passes the last batch as it is.
+The reference pads a ragged last batch to the full batch size (repeating
+its last sample) so its compiled detector sees one shape. Each image's
+detections do not depend on the others in its batch, and PyTorch runs any
+batch size, so the port passes the last batch as it is to a one-device
+detector; a data-parallel one (``Detector(devices=N)``) splits each batch
+over N replicas, so there the last batch is padded as the reference pads
+it. Padded rows are not scored.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import sys
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..data.datasets import LoadImagesAndLabels
@@ -48,10 +52,15 @@ def evaluate_dataset(detector, list_path: str, batch_size: int = 8,
                              cache_images=cache_images, workers=workers)
     stats = []
     n_done = 0
+    pad_last = len(detector.mesh) > 1
     for imgs, tgts, valid in ds:
+        n_real = len(imgs)
+        if pad_last and n_real < batch_size:
+            imgs = np.concatenate(
+                [imgs, np.repeat(imgs[-1:], batch_size - n_real, axis=0)])
         dets, mask = detector(torch.from_numpy(imgs))
         per_image = detections_to_numpy(dets, mask)
-        for b in range(len(imgs)):
+        for b in range(n_real):
             if max_images is not None and n_done >= max_images:
                 break
             n_done += 1

@@ -18,10 +18,12 @@ train-mode batch statistics), which reads and returns the same dicts.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -356,6 +358,53 @@ class FusedDarknet(nn.Module):
         return _walk(self.spec, x.permute(0, 3, 1, 2), self._conv)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum of ``x`` over the ranks of ``group``, differentiable: the
+    gradient of the sum with respect to each rank's ``x`` is the sum of
+    every rank's incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _sync_batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
+                     group) -> torch.Tensor:
+    """Train-mode BN over the batch of every rank of ``group``, as the
+    reference's sync BN (``rotate_yolov3_tpu/models/darknet.py:302-327``):
+    the f32 moments mean and E[x²] of this rank's slice are averaged across
+    the ranks (the raw moments, not per-rank variances, which would miss
+    the spread of the per-rank means), ``var = E[x²] - mean²`` normalises,
+    and ``running_var`` takes the unbiased n/(n-1) variance over the global
+    element count. The affine runs in the compute dtype with f32
+    per-channel scalars, as the reference's train path."""
+    world = dist.get_world_size(group)
+    mean = x.mean((0, 2, 3), dtype=torch.float32)
+    msq = x.square().mean((0, 2, 3), dtype=torch.float32)
+    moments = _AllReduceSum.apply(torch.stack([mean, msq]), group) / world
+    mean, msq = moments[0], moments[1]
+    var = msq - mean.square()
+    n = float(x.numel() // x.shape[1] * world)
+    u = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.copy_((1 - u) * bn.running_mean + u * mean)
+        bn.running_var.copy_((1 - u) * bn.running_var
+                             + u * (var * (n / max(n - 1.0, 1.0))))
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    shift = bn.bias - mean * inv
+    return (x * inv.to(x.dtype)[None, :, None, None]
+            + shift.to(x.dtype)[None, :, None, None])
+
+
 class Darknet(nn.Module):
     """The trainable network: per conv layer an ``nn.Conv2d`` (bias only
     without BN) and, with BN, an ``nn.BatchNorm2d(momentum=0.1, eps=1e-5)``
@@ -373,6 +422,11 @@ class Darknet(nn.Module):
     statistics and the affine in f32 inside the op, the output rounded
     once to bfloat16, where the reference applies the affine in bfloat16
     with f32-computed scalars (within one bfloat16 rounding of it).
+
+    ``forward(x, process_group)`` with a process group of data-parallel
+    ranks runs train-mode BN as sync BN over every rank's batch
+    (``_sync_batch_norm``); without one, BN is ``F.batch_norm`` on this
+    process's batch.
 
     ``params_state()`` returns the ``layer_key`` (params, state) dicts of
     the current weights (detached views), which ``fuse_bn``,
@@ -425,18 +479,25 @@ class Darknet(nn.Module):
             params[key] = p
         return params, state
 
-    def _conv(self, layer: ConvSpec, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, layer: ConvSpec, x: torch.Tensor,
+              group=None) -> torch.Tensor:
         key = layer_key(layer.index)
         conv, dt = self.convs[key], self.compute_dtype
         if key in self.bns:
             bn = self.bns[key]
             x = _conv2d(layer, x, conv.weight.to(dt), None)
-            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, self.training, bn.momentum, bn.eps)
+            if self.training and group is not None:
+                x = _sync_batch_norm(x, bn, group)
+            else:
+                x = F.batch_norm(x, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, self.training,
+                                 bn.momentum, bn.eps)
         else:
             x = _conv2d(layer, x, conv.weight.to(dt), conv.bias.to(dt))
         return _activate(x, layer.activation)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                process_group=None) -> List[torch.Tensor]:
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        return _walk(self.spec, x, self._conv)
+        return _walk(self.spec, x,
+                     functools.partial(self._conv, group=process_group))

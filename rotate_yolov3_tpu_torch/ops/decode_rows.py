@@ -202,7 +202,7 @@ def decode_rows(head_raws: Sequence[torch.Tensor], idx: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_rows kernel launch failed: CUDA error "
                            f"{err}")
-    decode_rows.launches += 1
+    _build.count_launch(decode_rows)
     return out
 
 

@@ -110,7 +110,7 @@ def gather_rows(cells: Cells, idx: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{err}")
-    gather_rows.launches += 1
+    _build.count_launch(gather_rows)
     return out
 
 

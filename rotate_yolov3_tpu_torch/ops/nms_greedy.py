@@ -202,8 +202,7 @@ def nms_greedy(boxes: torch.Tensor, cls_id: Optional[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"nms_greedy kernel launch failed: CUDA error "
                            f"{err}")
-    nms_greedy.launches += 1
-    nms_greedy.algo_launches[algo] += 1
+    _build.count_launch(nms_greedy, algo)
     return keep
 
 

@@ -360,8 +360,7 @@ def skew_kill_matrix(boxes: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"skew_kill kernel launch failed: CUDA error "
                            f"{err}")
-    skew_kill_matrix.launches += 1
-    skew_kill_matrix.algo_launches[algo] += 1
+    _build.count_launch(skew_kill_matrix, algo)
     return out
 
 
@@ -439,8 +438,7 @@ def skew_iou_matrix(a: torch.Tensor, b: torch.Tensor, triangle: bool = False,
     if err != 0:
         raise RuntimeError(f"skew_iou_matrix kernel launch failed: CUDA "
                            f"error {err}")
-    skew_iou_matrix.launches += 1
-    skew_iou_matrix.algo_launches[algo] += 1
+    _build.count_launch(skew_iou_matrix, algo)
     return out
 
 

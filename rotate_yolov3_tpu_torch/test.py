@@ -61,8 +61,8 @@ def make_parser():
     p.add_argument("--ap-method", choices=["continuous", "11point"],
                    default="continuous")
     p.add_argument("--devices", type=int, default=0,
-                   help="more than 1: data parallelism, not ported yet "
-                        "(raises)")
+                   help="data-parallel over N devices (0 = single); "
+                        "--batch-size must divide by N")
     p.add_argument("--approx-topk", action="store_true",
                    help="strided-bin pre-NMS top-k (ops/topk.py); eval "
                         "defaults to exact top-k on every device")

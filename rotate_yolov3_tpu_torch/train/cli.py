@@ -9,6 +9,17 @@ resume checkpoint (``torch.save`` of the train state) and ``last``/``best``
 ``.pt`` and ``.weights`` exports. ``--device`` takes ``cuda`` (default) or
 ``cpu``.
 
+``--devices N`` trains data-parallel on N ranks, one process each
+(``parallel.mesh``): the first N cards over NCCL (more than there are
+raises ``ValueError``), or N CPU processes over gloo with ``--device cpu``.
+Every rank reads the same global batches (same seed, same multi-scale
+draws) and trains on its contiguous slice; rank 0 alone writes
+``results.txt``, the checkpoints and the exports and runs the per-epoch
+eval with a one-device ``Detector``. ``--device-aug`` augments each batch
+on the device inside the train step (``data.augment_device``) and turns
+the host augmentation off; the card's machine has no cv2, so it is the
+augmentation a card run has.
+
 Two choices of the reference are kept or changed on purpose:
   * the ``seen`` counter of a loaded ``.weights`` file is dropped, as the
     reference drops it (burn-in restarts from step 0);
@@ -17,10 +28,6 @@ Two choices of the reference are kept or changed on purpose:
     the reference's numbers without a device sync per metric per step.
 The per-epoch eval reads images through ``--cache-images``, as training
 does (the reference's eval decodes them anew).
-
-Not ported yet, refused with ``NotImplementedError``: ``--devices > 1``
-(data parallelism) and ``--device-aug`` (on-device augmentation); see
-ROADMAP.md.
 
 Usage:
   python -m rotate_yolov3_tpu_torch.train --cfg cfg/yolov3-rotate-hrsc.cfg \\
@@ -34,34 +41,62 @@ import argparse
 import os
 import time
 
+# seconds a data-parallel rank waits for the others in a collective: rank 0
+# alone runs the per-epoch eval and writes the checkpoints while the rest
+# wait in the next step
+RANK_WAIT_S = 3600.0
+
 
 def train(opt):
+    """Train as the flags say; returns the best mAP of the per-epoch
+    evals (-1 without eval)."""
+    from ..detector import resolve_device
+    from ..parallel.mesh import launch, make_mesh
+
+    device = resolve_device(opt.device)
+    if opt.devices and opt.devices > 1:
+        devices = make_mesh(opt.devices, device)
+        return launch(_train_rank, opt.devices, (opt, devices))[0]
+    return _train(opt, device)
+
+
+def _train_rank(rank, world, store_dir, opt, devices):
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_group
+
+    group = init_group(rank, world, store_dir, devices[rank],
+                       timeout=RANK_WAIT_S)
+    try:
+        return _train(opt, devices[rank], group)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(opt, device, group=None):
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from ..config.hyp import Hyp
     from ..config.parse import (load_classes, parse_data_cfg,
                                 parse_model_cfg)
     from ..data.datasets import LoadImagesAndLabels
-    from ..detector import Detector, resolve_device
+    from ..detector import Detector
     from ..eval.evaluator import evaluate_dataset, print_eval_table
     from ..models.darknet import build_network, init_params
     from ..models.weights_io import (load_weights_file, save_darknet_weights,
                                      save_torch_pt)
+    from ..parallel.mesh import shard_batch
     from ..utils.metrics_writer import MetricsWriter
     from .schedule import cosine_schedule, darknet_schedule
     from .trainer import (init_train_state, load_checkpoint, make_train_step,
                           save_checkpoint)
 
-    if opt.devices and opt.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1: data-parallel training is not ported yet "
-            "(ROADMAP queue 1, item 5)")
-    if opt.device_aug:
-        raise NotImplementedError(
-            "--device-aug: on-device augmentation (data/augment_device.py) "
-            "is not ported yet (ROADMAP queue 1, item 5)")
-    device = resolve_device(opt.device)
+    rank, world = ((0, 1) if group is None else
+                   (dist.get_rank(group), dist.get_world_size(group)))
+    lead = rank == 0
+    log = print if lead else (lambda *a, **k: None)
 
     data_cfg = parse_data_cfg(opt.data)
     names = load_classes(data_cfg["names"]) if "names" in data_cfg else []
@@ -73,11 +108,12 @@ def train(opt):
     if opt.weights:
         params, state, _ = load_weights_file(spec, params, state,
                                              opt.weights)
-        print(f"loaded weights from {opt.weights}")
+        log(f"loaded weights from {opt.weights}")
 
     dataset = LoadImagesAndLabels(
         data_cfg["train"], img_size=spec.img_size,
-        batch_size=opt.batch_size, augment=not opt.no_augment, hyp=hyp,
+        batch_size=opt.batch_size,
+        augment=not (opt.no_augment or opt.device_aug), hyp=hyp,
         max_gt=opt.max_gt, seed=opt.seed,
         cache_images=opt.cache_images, workers=opt.workers)
     steps_per_epoch = len(dataset)
@@ -100,13 +136,14 @@ def train(opt):
         weight_decay=float(net.get("decay", 5e-4)),
         compute_dtype=torch.bfloat16 if opt.bf16 else torch.float32,
         device=device)
-    step_fn = make_train_step(spec, hyp)
+    step_fn = make_train_step(spec, hyp, process_group=group,
+                              device_aug=opt.device_aug, aug_seed=opt.seed)
 
     start_epoch = 0
     ckpt_dir = os.path.join(opt.out_dir, "ckpt")
     if opt.resume:
         start_epoch = load_checkpoint(ckpt_dir, ts)
-        print(f"resumed from epoch {start_epoch}")
+        log(f"resumed from epoch {start_epoch}")
 
     if opt.multi_scale:
         # the reference's random=1: a new size every ms_interval batches
@@ -115,18 +152,19 @@ def train(opt):
         scale_sizes = sorted({max(32, (int(base * s) // 32) * 32)
                               for s in np.linspace(0.67, 1.5, 8)})
         dataset.set_multi_scale(scale_sizes, interval=opt.ms_interval)
-        print(f"multi-scale sizes: {scale_sizes} "
-              f"(every {opt.ms_interval} batches)")
+        log(f"multi-scale sizes: {scale_sizes} "
+            f"(every {opt.ms_interval} batches)")
 
-    os.makedirs(opt.out_dir, exist_ok=True)
-    results_path = os.path.join(opt.out_dir, "results.txt")
-    metrics_writer = MetricsWriter(opt.out_dir,
-                                   tensorboard=not opt.no_tensorboard)
     best_map = -1.0
+    if lead:
+        os.makedirs(opt.out_dir, exist_ok=True)
+        results_path = os.path.join(opt.out_dir, "results.txt")
+        metrics_writer = MetricsWriter(opt.out_dir,
+                                       tensorboard=not opt.no_tensorboard)
 
     # one Detector reused across epochs, refreshed from the trained weights
     eval_det = None
-    if not opt.no_eval and "valid" in data_cfg and \
+    if lead and not opt.no_eval and "valid" in data_cfg and \
             os.path.exists(data_cfg["valid"]):
         eval_det = Detector(opt.cfg, img_size=spec.img_size,
                             conf_thres=opt.conf_thres,
@@ -137,8 +175,8 @@ def train(opt):
         t0 = time.time()
         keys, rows = [], []
         for batch in dataset:
-            imgs, tgts, valid = (torch.from_numpy(a).to(device)
-                                 for a in batch)
+            imgs, tgts, valid = (t.to(device) for t in shard_batch(
+                rank, world, *(torch.from_numpy(a) for a in batch)))
             metrics = step_fn(ts, imgs, tgts, valid)
             keys = list(metrics)
             rows.append(torch.stack([metrics[k] for k in keys]))
@@ -148,6 +186,8 @@ def train(opt):
             for k, v in zip(keys, row):
                 agg[k] = agg.get(k, 0.0) + v
         agg = {k: v / max(len(rows), 1) for k, v in agg.items()}
+        if not lead:
+            continue
         dt = time.time() - t0
         imgs_per_s = len(rows) * opt.batch_size / max(dt, 1e-9)
         print(f"epoch {epoch}: " +
@@ -194,7 +234,8 @@ def train(opt):
                                  seen=seen)
             save_torch_pt(spec, *host, os.path.join(opt.out_dir, "best.pt"),
                           epoch=epoch)
-    metrics_writer.close()
+    if lead:
+        metrics_writer.close()
     return best_map
 
 
@@ -213,15 +254,17 @@ def make_parser():
     p.add_argument("--burn-in", type=int, default=None)
     p.add_argument("--cosine", action="store_true")
     p.add_argument("--devices", type=int, default=0,
-                   help="more than 1: data parallelism, not ported yet "
-                        "(raises)")
+                   help="data-parallel over N devices, one process each "
+                        "(0 = single); --batch-size must divide by N")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--rotated-ignore", action="store_true",
                    help="exact rotated skew-IoU for the objectness ignore "
                         "region instead of darknet's axis-aligned box_iou")
     p.add_argument("--device-aug", action="store_true",
-                   help="on-device augmentation: not ported yet (raises)")
+                   help="mosaic/rotation/scale/flip/HSV augmentation on the "
+                        "device inside the train step (host augmentation "
+                        "off)")
     p.add_argument("--multi-scale", action="store_true",
                    help="vary net input size every --ms-interval batches "
                         "(0.67x-1.5x, /32) — the reference's random=1 cfg "

@@ -155,10 +155,18 @@ def test_detector_slice_matches_jax(tmp_path, cfg, img_size):
 
 
 def test_detector_refuses_unported_options():
+    """``packed_stem`` is refused; ``devices=2`` runs two replicas whose
+    gathered detections equal one device's."""
     cfg = os.path.join(ROOT, "cfg/yolov3-tiny-rotate-hrsc.cfg")
-    for kw in ({"devices": 2}, {"packed_stem": True}):
-        with pytest.raises(NotImplementedError):
-            Detector(cfg, img_size=64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Detector(cfg, img_size=64, device="cpu", packed_stem=True)
+    imgs = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3),
+                                             dtype=np.uint8)
+    one, two = (Detector(cfg, img_size=64, conf_thres=0.05, device="cpu",
+                         devices=n)(imgs) for n in (0, 2))
+    assert int(one[1].sum()) > 0
+    assert torch.equal(one[1], two[1])
+    torch.testing.assert_close(two[0], one[0], rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="algo"):
         Detector(cfg, img_size=64, device="cpu", iou_algo="green3")
     det = Detector(cfg, img_size=64, device="cpu", iou_algo="green2",
@@ -201,6 +209,13 @@ def test_detect_cli_on_cpu(tmp_path):
         rows = np.loadtxt(out / f"im{i}.txt", ndmin=2)
         assert rows.shape[1] == 7 and 1 <= len(rows) <= 16
         assert (out / f"im{i}.jpg").exists()
-    with pytest.raises(NotImplementedError):
-        detect(make_parser().parse_args(
-            ["--cfg", "x.cfg", "--source", str(src), "--devices", "2"]))
+    # two replicas, the last batch of 1 padded to 2: the same files
+    detect(make_parser().parse_args([
+        "--cfg", os.path.join(ROOT, "cfg/yolov3-tiny-rotate-hrsc.cfg"),
+        "--source", str(src), "--output", str(tmp_path / "out2"),
+        "--img-size", "64", "--conf-thres", "0.0", "--max-det", "16",
+        "--batch-size", "2", "--devices", "2", "--device", "cpu"]))
+    for i in range(3):
+        np.testing.assert_allclose(
+            np.loadtxt(tmp_path / "out2" / f"im{i}.txt", ndmin=2),
+            np.loadtxt(out / f"im{i}.txt", ndmin=2), rtol=0, atol=1e-4)

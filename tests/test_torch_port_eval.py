@@ -246,11 +246,22 @@ def test_test_cli_runs_on_the_cpu(eval_setup, capsys):
 
 
 def test_test_cli_refuses_devices(eval_setup):
-    _, _, data = eval_setup
-    with pytest.raises(NotImplementedError):
-        test_cli.test(test_cli.make_parser().parse_args(
-            ["--cfg", TINY, "--data", data, "--device", "cpu",
-             "--devices", "2"]))
+    """``--devices 2`` over the 7 images at batch 4: the ragged last batch
+    of 3 is padded to 4 and split over two replicas; P, R and mAP equal
+    the one-device run's, and ``evaluate_dataset`` scores 7 images."""
+    wpath, list_path, data = eval_setup
+    args = ["--cfg", TINY, "--data", data, "--weights", wpath, "--img-size",
+            str(IMG), "--conf-thres", str(CONF), "--max-det", "64",
+            "--batch-size", "4", "--device", "cpu"]
+    one = test_cli.test(test_cli.make_parser().parse_args(args))
+    two = test_cli.test(test_cli.make_parser().parse_args(
+        args + ["--devices", "2"]))
+    assert one == two and one[2] > 0
+    det = Detector(TINY, weights=wpath, img_size=IMG, conf_thres=CONF,
+                   max_det=64, approx_top_k=False, devices=2, device="cpu")
+    got = evaluate_dataset(det, list_path, batch_size=4)
+    assert got["n_images"] == 7
+    assert (got["mp"], got["mr"], got["map"]) == one
 
 
 def test_cli_default_device_is_cuda():

@@ -44,6 +44,7 @@ from rotate_yolov3_tpu.train.trainer import (init_train_state as jinit_ts,
 from rotate_yolov3_tpu_torch import train as train_pkg
 from rotate_yolov3_tpu_torch.config.hyp import Hyp
 from rotate_yolov3_tpu_torch.config.parse import parse_model_cfg
+from rotate_yolov3_tpu_torch.data.datasets import img2label_path
 from rotate_yolov3_tpu_torch.detector import Detector
 from rotate_yolov3_tpu_torch.models import weights_io as wio
 from rotate_yolov3_tpu_torch.models.darknet import (Darknet, build_network,
@@ -527,11 +528,44 @@ def test_train_cli_with_eval_writes_checkpoints(tmp_path):
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--device-aug"],
                                   ["--device", "cuda"]])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flag):
-    if flag == ["--device", "cuda"] and torch.cuda.is_available():
-        pytest.skip("a card is present: cuda is a valid device here")
+    """``--device cuda`` without a card is refused. ``--devices 2`` on a
+    dataset of one image repeated (so each rank's loss normalisation equals
+    the whole batch's) gives the one-device results.txt within the CLI
+    tolerance. ``--device-aug`` trains on augmented batches: finite losses,
+    other than the unaugmented run's."""
+    if flag == ["--device", "cuda"]:
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: cuda is a valid device here")
+        data = _dataset(tmp_path)
+        with pytest.raises(RuntimeError):
+            train_pkg.train(train_pkg.make_parser().parse_args(
+                ["--cfg", TINY, "--data", data, "--epochs", "1",
+                 "--out-dir", str(tmp_path / "w"), "--device", "cuda"]))
+        return
     data = _dataset(tmp_path)
+    if flag[0] == "--devices":
+        with open(data) as f:
+            list_path = f.read().split("train=")[1].split()[0]
+        with open(list_path) as f:
+            paths = f.read().split()
+        for p in paths[1:]:
+            for a, b in ((paths[0], p),
+                         (img2label_path(paths[0]), img2label_path(p))):
+                with open(a, "rb") as src, open(b, "wb") as dst:
+                    dst.write(src.read())
     args = ["--cfg", TINY, "--data", data, "--epochs", "1",
-            "--out-dir", str(tmp_path / "w"), "--device", "cpu"] + flag
-    err = RuntimeError if flag[0] == "--device" else NotImplementedError
-    with pytest.raises(err):
-        train_pkg.train(train_pkg.make_parser().parse_args(args))
+            "--batch-size", "2", "--img-size", str(IMG), "--max-gt", "8",
+            "--burn-in", "2", "--no-augment", "--no-tensorboard",
+            "--no-eval", "--device", "cpu"]
+    rows = []
+    for extra, out in (([], "one"), (flag, "opt")):
+        train_pkg.train(train_pkg.make_parser().parse_args(
+            args + extra + ["--out-dir", str(tmp_path / out)]))
+        rows.append(np.loadtxt(str(tmp_path / out / "results.txt")))
+    assert np.isfinite(rows[1]).all() and rows[1][5] > 0
+    if flag[0] == "--devices":
+        np.testing.assert_allclose(rows[1][1:6], rows[0][1:6], rtol=0,
+                                   atol=2e-4)
+    else:
+        assert not np.allclose(rows[1][1:6], rows[0][1:6], rtol=0,
+                               atol=1e-3)
