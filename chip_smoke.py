@@ -124,6 +124,26 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      merged masks equal, rows within 1e-5; (f) with one card,
      ``Detector(devices=2)`` and ``train --devices 2`` must raise; (g)
      ``parallel.dryrun.dryrun_multichip(1, "cuda")``.
+ 15. the rest of the port: (a) ``Detector("cfg/yolov3-rotate-hrsc.cfg",
+     packed_stem=True)`` at 608²: in f32 (TF32 off) at B = 8 its heads
+     within ``STEM_TOL`` (relative) of the canonical Detector's, keep and
+     detections equal to the plain recompute and, from the card's stages,
+     the CPU path, masks equal and rows within 1e-3 of the canonical
+     Detector's on every image with the same candidates and no band pair;
+     in bf16 at B = 128 kernels A and B launched once each, keep and
+     detections equal to the plain recompute, img/s of the packed and the
+     canonical Detector in turns, and the stem alone (conv0 + conv1 against
+     conv0' + conv1', and conv1' after an explicit ``F.pad``) in µs/img;
+     (b) a copy of the HRSC cfg with heads of na 12, 18, 18
+     (``MIXED_MASK``) at B = 8, 608², bf16 and f32 (TF32 off): kernel A
+     launched once per head, B once, D never, also with
+     ``decode_kernel=True``; keep and detections equal to the plain
+     recompute, the decode to the CPU's plain one, and in f32 the CPU path;
+     (c) ``utils``: ``select_device``, ``device_info``, ``time_fn`` of a
+     bf16 B = 128 call with the achieved TFLOP/s of ``flops_per_image``,
+     and a ``trace`` of one call that names kernels A and B; (d) the
+     port's ``kmeans_anchors`` on phase 13's drawn labels and
+     ``verify_reference --self-test``.
 Every kernel's bound (``bound_ms``, ``bound_by``) is the larger of the fp32
 operations its inputs need over ``FP32_PEAK`` and its bytes over
 ``MEM_PEAK``; a pair's operations are counted in the SASS of probe kernels
@@ -208,6 +228,11 @@ TRAIN_LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 3e-3
 # phase 14: images in [0, 1] and normalized labels of the card's
 # augmentation against the CPU's on the same draws
 AUG_TOL = 1e-5
+# phase 15: packed against canonical heads, f32, TF32 off, within STEM_TOL
+# times the largest |head| (absolutely, where that is above 1); the anchors
+# of the mixed-na cfg's first [yolo] (na 12, the other heads 18)
+STEM_TOL = 1e-4
+MIXED_MASK = (6, 7)
 
 # every kernel of the port, each pair algo of B, C and E its own entry:
 # name -> (source, the TPU kernel's pallas_call it replaces)
@@ -720,7 +745,7 @@ def phase_slice(torch, card, results) -> None:
 
 
 def _slice_vs_cpu(torch, card, heads, specs, det, fm, use_cls, card_stages,
-                  skew_iou_green) -> None:
+                  skew_iou_green, what: str = "slice f32") -> None:
     """The card's f32 stages against the plain-PyTorch path on the CPU, each
     stage fed the card's own inputs, so near-tied scores (the two devices'
     sigmoid differ in the last bit) cannot reorder a later stage."""
@@ -738,13 +763,13 @@ def _slice_vs_cpu(torch, card, heads, specs, det, fm, use_cls, card_stages,
                                            det.approx_top_k, fm)
     score_err = float((scores_c - scores).abs().max())
     if score_err > 1e-6:
-        raise AssertionError(f"slice f32: top-k scores differ from the CPU "
+        raise AssertionError(f"{what}: top-k scores differ from the CPU "
                              f"path by {score_err}")
     # decode from the card's indices
     boxes_c, cls_c = decode_candidates(heads_c, specs, idx, valid, fm)
     box_err = float((boxes_c - boxes).abs().max())
     if box_err > 1e-3 or not torch.equal(cls_c, cls):
-        raise AssertionError(f"slice f32: decoded boxes differ from the CPU "
+        raise AssertionError(f"{what}: decoded boxes differ from the CPU "
                              f"path by {box_err}")
     # kill + fixpoint from the card's boxes
     cls_arg = cls if use_cls else None
@@ -754,16 +779,16 @@ def _slice_vs_cpu(torch, card, heads, specs, det, fm, use_cls, card_stages,
     iou = skew_iou_green(boxes[:, :, None, :], boxes[:, None, :, :])
     far = (iou - THR).abs() > BAND
     if bool(((kill_k != kill_c) & far).any()):
-        raise AssertionError("slice f32: card kill mask differs from the CPU "
+        raise AssertionError(f"{what}: card kill mask differs from the CPU "
                              "plain version outside the band")
     out_c, keep_c = nms_from_candidates(boxes, scores, cls, valid, THR,
                                         use_cls, det.max_det)
     same_kill = torch.equal(kill_k, kill_c)
     if same_kill and not (torch.equal(keep_c, keep) and
                           torch.equal(out_c, out)):
-        raise AssertionError("slice f32: card keep differs from the CPU "
+        raise AssertionError(f"{what}: card keep differs from the CPU "
                              "plain path on equal kill masks")
-    log(f"slice f32 vs CPU plain path: top-k scores max diff {score_err:.3g}"
+    log(f"{what} vs CPU plain path: top-k scores max diff {score_err:.3g}"
         f" ({int((idx_c != idx).sum())} index slots differ by tie order), "
         f"boxes max diff {box_err:.3g}, kill masks "
         f"{'equal' if same_kill else 'equal outside the band'}, keep "
@@ -2702,6 +2727,379 @@ def phase_parallel(torch, card) -> None:
     log(f"phase parallel: {time.perf_counter() - t0:.1f} s")
 
 
+def _mixed_na_cfg(root: str) -> str:
+    """A copy of the HRSC cfg in ``root`` whose first [yolo] has the two
+    anchors of ``MIXED_MASK`` (its head conv 84 filters): heads of na 12,
+    18 and 18, which take the per-head decode."""
+    with open(CFG) as f:
+        lines = f.read().split("\n")
+    y = lines.index("[yolo]")
+    f_line = max(i for i in range(y) if lines[i].startswith("filters="))
+    m_line = next(i for i in range(y, len(lines))
+                  if lines[i].startswith("mask"))
+    na = len(MIXED_MASK) * 6
+    lines[f_line] = f"filters={na * 7}"
+    lines[m_line] = "mask = " + ",".join(map(str, MIXED_MASK))
+    path = os.path.join(root, "yolov3-rotate-hrsc-mixed-na.cfg")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return path
+
+
+def _counted(torch, fn):
+    """``fn()`` with the launch counts of kernels A, B and D set to 0 just
+    before it; (its result, the counts read just after)."""
+    from rotate_yolov3_tpu_torch.ops.decode_rows import decode_rows
+    from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_kill_matrix
+
+    wrappers = {"gather_rows": gather_rows, "skew_kill": skew_kill_matrix,
+                "decode_rows": decode_rows}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def _staged_vs_plain(torch, what, det, x, out):
+    """Raise unless the entry point's (detections, keep) ``out`` equal its
+    stages run one by one from ``det.heads(x)`` and the keep recomputed
+    from the same boxes through the plain kill mask (``KILL_CHUNK`` images
+    a call). Returns the heads and the stages, as ``_slice_vs_cpu`` takes
+    them."""
+    from rotate_yolov3_tpu_torch.ops.nms_greedy import nms_greedy_ref
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import (decode_candidates,
+                                                         nms_from_candidates,
+                                                         select_candidates)
+
+    specs, fm = det.spec.yolo_specs, det.field_major_heads
+    use_cls = specs[0].num_classes > 1
+    heads = det.heads(x)
+    scores, idx, valid = select_candidates(heads, specs, CONF, det.max_det,
+                                           det.approx_top_k, fm)
+    boxes, cls = decode_candidates(heads, specs, idx, valid, fm)
+    out_k, keep_k = nms_from_candidates(boxes, scores, cls, valid, THR,
+                                        use_cls, det.max_det)
+
+    def plain_keep(b, c, v, iou_thr):
+        return _in_chunks(torch, lambda bb, cc, vv: nms_greedy_ref(
+            bb, cc, vv, iou_thr), b, c, v)
+
+    out_r, keep_r = nms_from_candidates(boxes, scores, cls, valid, THR,
+                                        use_cls, det.max_det,
+                                        keep_fn=plain_keep)
+    if not (torch.equal(keep_k, keep_r) and torch.equal(out_k, out_r)):
+        raise AssertionError(f"{what}: kernel keep differs from the plain "
+                             f"recompute")
+    dets, mask = out
+    if not (torch.equal(mask, keep_k) and torch.equal(dets, out_k)):
+        raise AssertionError(f"{what}: Detector output differs from the "
+                             f"staged recompute")
+    return heads, (scores, idx, valid, boxes, cls, keep_k, out_k)
+
+
+def _stem_times(torch, card, canon, packed, x) -> None:
+    """The stem alone, B = len(x), bf16, channels_last, CUDA events: conv0
+    + conv1 against conv0' + conv1' as the packed Detector runs them
+    (conv0' with the symmetric pad 1, conv1' with pad 1 and its last row
+    and column dropped) and with conv1' after an explicit ``F.pad``; each
+    made dense (channels_last), as layer 2's convolution would."""
+    import torch.nn.functional as F
+
+    from rotate_yolov3_tpu_torch.models.darknet import (_activate, _conv2d,
+                                                        layer_key)
+
+    xin = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    def conv(det, layer, y):
+        key = layer_key(layer.index)
+        return _activate(_conv2d(layer, y, det.net.kernels[key],
+                                 det.net.biases[key]), layer.activation)
+
+    def dense(y):
+        return y.contiguous(memory_format=torch.channels_last)
+
+    def stem(det):
+        l0, l1 = det.net.spec.layers[:2]
+        return lambda: dense(conv(det, l1, conv(det, l0, xin)))
+
+    def packed_pad():
+        l0, l1 = packed.net.spec.layers[:2]
+        (top, bottom), (left, right) = l1.pad
+        y = F.pad(conv(packed, l0, xin), (left, right, top, bottom))
+        key = layer_key(1)
+        return dense(_activate(F.conv2d(y, packed.net.kernels[key],
+                                        packed.net.biases[key]),
+                               l1.activation))
+
+    runs = {"canonical": stem(canon), "packed": stem(packed),
+            "packed, conv1' after F.pad": packed_pad}
+    with torch.inference_mode():
+        outs = {k: f() for k, f in runs.items()}
+        same = torch.equal(outs["packed"], outs["packed, conv1' after F.pad"])
+        err = _max_err(outs["packed"], outs["canonical"])
+        scale = float(outs["canonical"].float().abs().max())
+        del outs
+        us = {}
+        for name in ("canonical", "packed", "packed, conv1' after F.pad",
+                     "packed, conv1' after F.pad", "packed", "canonical"):
+            us.setdefault(name, []).append(
+                time_ms(torch, runs[name], reps=10, warmup=2) * 1e3 / len(x))
+    log(f"stem alone bf16 B={len(x)} @{x.shape[1]}, layer-1 output dense (µs/img, "
+        f"in turns): " + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in
+                                                         vs)
+                                   for k, vs in us.items())
+        + f"; packed vs canonical max diff {err:.3g} (|out| <= "
+        f"{scale:.3g}); the two conv1' forms "
+        f"{'bit-equal' if same else 'differ'} [{card}]")
+
+
+def _rest_packed(torch, card):
+    """Phase 15(a): ``Detector(packed_stem=True)`` at 608². Returns the
+    canonical bf16 Detector and the B = B_BENCH images for (c)."""
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import select_candidates
+    from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
+
+    img = NET_IMG or 608
+    gen = torch.Generator().manual_seed(15)
+    x8 = torch.randint(0, 256, (B_CHECK, img, img, 3), generator=gen,
+                       dtype=torch.uint8)
+    kw = dict(img_size=NET_IMG, conf_thres=CONF, nms_thres=THR, max_det=128,
+              seed=0, device=DEVICE)
+    old = _no_tf32(torch)
+    try:
+        canon = Detector(CFG, compute_dtype=torch.float32, **kw)
+        packed = Detector(CFG, compute_dtype=torch.float32, packed_stem=True,
+                          **kw)
+        specs, fm = packed.spec.yolo_specs, packed.field_major_heads
+        use_cls = specs[0].num_classes > 1
+        with torch.inference_mode():
+            hc = canon.heads(x8)
+            hp = packed.heads(x8)
+        head_err = max(_max_err(p, c) for p, c in zip(hp, hc))
+        scale = max(float(h.abs().max()) for h in hc)
+        # relative to the heads' size where they are below 1: random
+        # weights give heads of ~1e-4
+        if not head_err <= STEM_TOL * min(1.0, scale):
+            raise AssertionError(f"packed f32: heads {head_err} from the "
+                                 f"canonical Detector's (|heads| <= "
+                                 f"{scale})")
+        out, n = _counted(torch, lambda: packed(x8))
+        if n["gather_rows"] < 1 or n["skew_kill"] < 1:
+            raise AssertionError(f"packed f32: a kernel of the path did not "
+                                 f"launch: {n}")
+        _check_detections(torch, *out, packed.max_det)
+        heads, stages = _staged_vs_plain(torch, "packed f32", packed, x8,
+                                         out)
+        _slice_vs_cpu(torch, card, heads, specs, packed, fm, use_cls, stages,
+                      skew_iou_green, what="packed f32")
+        # against the canonical Detector, on every image whose candidates
+        # are the same rows in the same order (the heads differ by float
+        # reassociation, which can swap near-tied scores) and that has no
+        # pair within the band
+        scores, idx, valid, boxes, cls = stages[:5]
+        cdets, cmask = canon(x8)
+        _, cidx, _ = select_candidates(hc, specs, CONF, canon.max_det,
+                                       canon.approx_top_k, fm)
+        comparable = (idx == cidx).all(1) & _clean_images(
+            torch, boxes, cls if use_cls else None, valid)
+        dets, mask = out
+        if not (torch.equal(mask[comparable], cmask[comparable]) and
+                _max_err(dets[comparable], cdets[comparable]) <= 1e-3):
+            raise AssertionError("packed f32: detections differ from the "
+                                 "canonical Detector's on an image with the "
+                                 "same candidates and no band pair")
+        log(f"packed f32 B={B_CHECK} @{img}: launches {n}; heads max diff from "
+            f"the canonical Detector {head_err:.3g} (|heads| <= "
+            f"{scale:.3g}); {int(mask.sum())} kept; keep and detections equal "
+            f"to the plain recompute; masks equal and rows within 1e-3 of the "
+            f"canonical Detector's on {int(comparable.sum())} of {B_CHECK} "
+            f"images (the rest: candidates reordered by near ties, or a "
+            f"band pair) [{card}]")
+        del canon, packed, hc, hp, heads, stages, out, cdets, cmask
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randint(0, 256, (B_BENCH, img, img, 3), generator=gen,
+                      dtype=torch.uint8).to(DEVICE)
+    canon = Detector(CFG, compute_dtype=torch.bfloat16, **kw)
+    packed = Detector(CFG, compute_dtype=torch.bfloat16, packed_stem=True,
+                      **kw)
+    out, n = _counted(torch, lambda: packed(x))
+    if n["gather_rows"] != 1 or n["skew_kill"] != 1:
+        raise AssertionError(f"packed bf16 B={B_BENCH}: kernels A and B must "
+                             f"launch once each: {n}")
+    _check_detections(torch, *out, packed.max_det)
+    _staged_vs_plain(torch, f"packed bf16 B={B_BENCH}", packed, x, out)
+    dets = {"canonical": canon, "packed": packed}
+    ms: dict = {}
+    for name in ("canonical", "packed", "packed", "canonical"):
+        ms.setdefault(name, []).append(
+            time_ms(torch, lambda: dets[name](x), reps=5, warmup=2))
+    log(f"packed bf16 B={B_BENCH} @{img}: launches {n}; keep and detections "
+        f"equal to the plain recompute; img/s in turns (median of 5 each): "
+        + "; ".join(f"{k} " + " / ".join(f"{B_BENCH / v * 1e3:.2f}"
+                                          for v in vs)
+                    for k, vs in ms.items()) + f" [{card}]")
+    _stem_times(torch, card, canon, packed, x)
+    del packed, out
+    return canon, x
+
+
+def _rest_mixed(torch, card, root) -> None:
+    """Phase 15(b): a mixed-na cfg at full width through ``Detector`` and
+    ``decode_kernel=True``: kernel A once per head, B once, D never."""
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.ops.rotated_nms import (
+        decode_candidates, non_max_suppression_fused)
+    from rotate_yolov3_tpu_torch.ops.skew_iou_green import skew_iou_green
+
+    cfg = _mixed_na_cfg(root)
+    img = NET_IMG or 608
+    gen = torch.Generator().manual_seed(17)
+    x8 = torch.randint(0, 256, (B_CHECK, img, img, 3), generator=gen,
+                       dtype=torch.uint8)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"mixed-na {str(dtype)[6:]}"
+        old = _no_tf32(torch) if dtype == torch.float32 else None
+        try:
+            det = Detector(cfg, img_size=NET_IMG, conf_thres=CONF,
+                           nms_thres=THR, max_det=128, compute_dtype=dtype,
+                           seed=0, device=DEVICE)
+            specs, fm = det.spec.yolo_specs, det.field_major_heads
+            use_cls = specs[0].num_classes > 1
+            nas = [s.na for s in specs]
+            if len(set(nas)) < 2:
+                raise AssertionError(f"{name}: heads of one na {nas}")
+            want = {"gather_rows": len(specs), "skew_kill": 1,
+                    "decode_rows": 0}
+            out, n = _counted(torch, lambda: det(x8))
+            if n != want:
+                raise AssertionError(f"{name}: launches {n}, expected {want}")
+            _check_detections(torch, *out, det.max_det)
+            heads, stages = _staged_vs_plain(torch, name, det, x8, out)
+            out_dk, n_dk = _counted(torch, lambda: non_max_suppression_fused(
+                heads, specs, conf_thres=CONF, nms_thres=THR,
+                max_det=det.max_det, approx_top_k=det.approx_top_k,
+                field_major=fm, decode_kernel=True))
+            if n_dk != want:
+                raise AssertionError(f"{name}: decode_kernel=True launches "
+                                     f"{n_dk}, expected {want}")
+            if not all(torch.equal(a, b) for a, b in zip(out_dk, out)):
+                raise AssertionError(f"{name}: decode_kernel=True differs")
+            scores, idx, valid, boxes, cls = stages[:5]
+            if dtype == torch.float32:
+                _slice_vs_cpu(torch, card, heads, specs, det, fm, use_cls,
+                              stages, skew_iou_green, what=name)
+            else:
+                # the plain gather + decode on the CPU, from the card's
+                # bf16 heads and candidates
+                boxes_c, cls_c = decode_candidates(
+                    [h.cpu() for h in heads], specs, idx.cpu(), valid.cpu(),
+                    fm)
+                err = _max_err(boxes_c, boxes.cpu())
+                if err > 1e-3 or not torch.equal(cls_c, cls.cpu()):
+                    raise AssertionError(f"{name}: decoded boxes {err} from "
+                                         f"the CPU plain path")
+                log(f"{name}: boxes from the plain gather + decode on the "
+                    f"CPU within {err:.3g} [{card}]")
+            log(f"{name} B={B_CHECK} @{img}, na {nas}: launches {n} "
+                f"(decode_kernel=True: {n_dk}, the same detections); "
+                f"{int(out[1].sum())} kept; keep and detections equal to the "
+                f"plain recompute [{card}]")
+            del det, heads, stages, out, out_dk
+        finally:
+            if old is not None:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _rest_utils(torch, card, det, x, root) -> None:
+    """Phase 15(c): the device, timing, trace and FLOP utilities on the
+    card, on the canonical bf16 Detector at B = B_BENCH."""
+    from rotate_yolov3_tpu_torch.utils.device import (device_info,
+                                                      select_device)
+    from rotate_yolov3_tpu_torch.utils.profiling import (flops_per_image,
+                                                         time_fn, trace)
+
+    dev = select_device("cuda")
+    info = device_info()
+    if dev.type != "cuda" or torch.cuda.get_device_name(0) not in info:
+        raise AssertionError(f"select_device / device_info: {dev}, {info}")
+    t = time_fn(det, x, iters=5, warmup=2)
+    img_s = B_BENCH / t["mean_s"]
+    flops = flops_per_image(det.spec)
+    with trace(os.path.join(root, "trace")) as log_dir:
+        det(x)
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(log_dir, files[0])) as f:
+        text = f.read()
+    named = {k: k in text for k in ("gather_rows_kernel",
+                                    "skew_kill_kernel")}
+    if len(files) != 1 or not all(named.values()):
+        raise AssertionError(f"trace: {files}, kernels named: {named}")
+    log(f"utils: select_device -> {dev}; {info}; time_fn of a bf16 "
+        f"B={B_BENCH} Detector call: mean {t['mean_s'] * 1e3:.3f} ms, min "
+        f"{t['min_s'] * 1e3:.3f} ms, std {t['std_s'] * 1e3:.3f} ms over "
+        f"{t['iters']} ({img_s:.2f} img/s); flops_per_image {flops} -> "
+        f"{flops * img_s / 1e12:.2f} TFLOP/s achieved; trace "
+        f"{len(text) / 2**20:.1f} MiB names kernels A and B [{card}]")
+
+
+def _rest_tools(root) -> None:
+    """Phase 15(d): the port's anchor tool on phase 13's drawn labels, and
+    the reference-check tool's self-test."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from rotate_yolov3_tpu_torch.tools import kmeans_anchors, verify_reference
+
+    imgs, labels = _draw_ships(TRAIN_N_IMAGES, TRAIN_IMG, seed=12)
+    data = _write_dataset(os.path.join(root, "ships"), imgs, labels)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        anchors, angles = kmeans_anchors.main([
+            "--data", data, "--img-size", str(TRAIN_IMG), "--num", "9",
+            "--num-angles", "6"])
+    lines = buf.getvalue().splitlines()
+    if anchors.shape != (9, 2) or \
+            not bool(np.all(np.diff(anchors.prod(1)) >= 0)) or \
+            "angles = -60,-30,0,30,60,90" not in lines:
+        raise AssertionError(f"kmeans_anchors: {lines}")
+    for line in lines:
+        log(f"kmeans_anchors: {line}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = verify_reference.main(["--self-test"])
+    if rc != 0 or "self-test OK" not in buf.getvalue():
+        raise AssertionError(f"verify_reference --self-test: rc {rc}\n"
+                             + buf.getvalue())
+    log("verify_reference --self-test: exit 0, self-test OK")
+
+
+def phase_rest(torch, card) -> None:
+    """Phase 15: the packed stem, mixed-na heads, the utilities and the
+    tools (see the module docstring)."""
+    import tempfile
+
+    from rotate_yolov3_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        det, x = _rest_packed(torch, card)
+        _rest_utils(torch, card, det, x, root)
+        del det, x
+        _rest_mixed(torch, card, root)
+        _rest_tools(root)
+    log(f"phase rest: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -2738,6 +3136,7 @@ def main() -> int:
     run(phase_options, torch, card, results)
     run(phase_train, torch, card)
     run(phase_parallel, torch, card)
+    run(phase_rest, torch, card)
     log("seconds by phase: " + ", ".join(seconds))
 
     kernels = []

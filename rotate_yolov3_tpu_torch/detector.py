@@ -15,10 +15,11 @@ device, the results gathered on the first. Replicas run in one thread each
 fixpoint waits on its device between passes, and in one thread those waits
 would serialise the replicas.
 
-The reference's ``bake_params`` (closing the XLA program over the weights)
-has no PyTorch counterpart — PyTorch runs eagerly — and is dropped.
-Not ported yet, and refused with ``NotImplementedError``:
-``packed_stem=True`` (see ROADMAP.md).
+``packed_stem=True`` runs the stem in its packed form
+(``models.packed_stem``), as the reference's does; training and checkpoint
+IO keep the canonical spec. The reference's ``bake_params`` (closing the
+XLA program over the weights) has no PyTorch counterpart — PyTorch runs
+eagerly — and is dropped.
 """
 
 from __future__ import annotations
@@ -33,24 +34,13 @@ import torch
 from .config.parse import parse_model_cfg
 from .models.darknet import (ConvSpec, FusedDarknet, NetworkSpec,
                              build_network, fuse_bn, init_params, layer_key)
+from .models.packed_stem import pack_stem
 from .models.weights_io import load_weights_file
 from .models.yolo_head import decode_all, field_major_perm
 from .ops.rotated_nms import non_max_suppression_fused
 from .ops.skew_iou_cuda import check_algo
 from .parallel.mesh import make_mesh
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``: "cuda" raises without a card (no
-    fallback to the CPU), and only "cuda" and "cpu" are accepted."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r}: no CUDA device is available "
-            f"(use device='cpu' for the plain-PyTorch path)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+from .utils.device import resolve_device
 
 
 class Detector:
@@ -102,10 +92,6 @@ class Detector:
                  approx_top_k: Optional[bool] = None,
                  field_major_heads: bool = True,
                  iou_algo: str = "green", device="cuda"):
-        if packed_stem:
-            raise NotImplementedError(
-                "Detector(packed_stem=True) is not ported yet (ROADMAP "
-                "queue 1, item 13)")
         check_algo(iou_algo)
         self.iou_algo = iou_algo
         self.iou_matrix_fn = iou_matrix_fn
@@ -122,6 +108,7 @@ class Detector:
         self.nms_thres = nms_thres
         self.max_det = max_det
         self.compute_dtype = compute_dtype
+        self.packed_stem = bool(packed_stem)
 
         params, state = init_params(self.spec, seed)
         self.seen, self.epoch = 0, -1
@@ -149,13 +136,14 @@ class Detector:
         self.refresh_params()
 
     def refresh_params(self, params=None, state=None) -> None:
-        """Rebuild the fused network: BN fold, 1/255 fold into the first
-        conv, field-major head permutation — all on the f32 kernels, on the
-        detector's device (so the fused weights depend only on the values
-        given, wherever they lie: a detector refreshed from a trainer's
-        card tensors equals one loaded from its saved file) — then the
-        cast to the compute dtype, and a copy on every other device of
-        ``mesh``."""
+        """Rebuild the fused network: BN fold, then the packed stem with
+        1/255 folded into its first kernel (``packed_stem``) or the 1/255
+        fold into the first conv, field-major head permutation — all on the
+        f32 kernels, on the detector's device (so the fused weights depend
+        only on the values given, wherever they lie: a detector refreshed
+        from a trainer's card tensors equals one loaded from its saved
+        file) — then the cast to the compute dtype, and a copy on every
+        other device of ``mesh``."""
         if params is not None:
             self.params = params
         if state is not None:
@@ -167,19 +155,27 @@ class Detector:
                  fuse_bn(self.spec, params, state).items()}
         # conv is linear: the input normalisation folds into the first
         # kernel (bias untouched), so the net consumes raw 0..255 pixels
-        first = layer_key(self.spec.conv_specs[0].index)
-        fused[first]["kernel"] = fused[first]["kernel"] * (1.0 / 255.0)
+        if self.packed_stem:
+            # the inference spec: self.spec stays canonical for training
+            # and checkpoint IO
+            self._infer_spec, fused = pack_stem(self.spec, fused,
+                                                input_scale=1.0 / 255.0)
+        else:
+            self._infer_spec = self.spec
+            first = layer_key(self.spec.conv_specs[0].index)
+            fused[first]["kernel"] = fused[first]["kernel"] * (1.0 / 255.0)
         if self.field_major_heads:
             for ys in self.spec.yolo_specs:
                 key = layer_key(ys.index - 1)
                 perm = torch.from_numpy(field_major_perm(ys)).to(self.device)
                 fused[key]["kernel"] = fused[key]["kernel"][perm]
                 fused[key]["bias"] = fused[key]["bias"][perm]
-        self.net = FusedDarknet(self.spec, fused).to(dtype=self.compute_dtype)
+        self.net = FusedDarknet(self._infer_spec, fused).to(
+            dtype=self.compute_dtype)
         nets = {self.device: self.net}
         for dev in self.mesh:
             if dev not in nets:
-                nets[dev] = FusedDarknet(self.spec, {
+                nets[dev] = FusedDarknet(self._infer_spec, {
                     k: {n: t.to(dev) for n, t in d.items()}
                     for k, d in fused.items()}).to(dtype=self.compute_dtype)
         self.nets = [nets[dev] for dev in self.mesh]

@@ -320,10 +320,27 @@ def _walk(spec: NetworkSpec, x: torch.Tensor, conv) -> List[torch.Tensor]:
 
 def _conv2d(layer: ConvSpec, x: torch.Tensor, w: torch.Tensor,
             b: Optional[torch.Tensor]) -> torch.Tensor:
+    """One convolution with the layer's padding. An explicit pad
+    ((top, bottom), (left, right)) runs as the symmetric (top, left) pad of
+    the convolution itself wherever that reads the same windows: the
+    windows start at the same rows, and any the symmetric pad adds at the
+    end are dropped (conv1' of the packed stem: (1, 0)); a window the
+    larger end pad would add (conv0': (1, 2)) ends on a row the symmetric
+    pad also zeroes when the input is even, so none is lost. Otherwise
+    the input is padded first (``F.pad``, one more pass over it). For
+    conv1' the dropped row and column beat the ``F.pad`` on an H100
+    (``chip_smoke.py`` phase 15, PERF.md)."""
     if layer.pad is None:
         return F.conv2d(x, w, b, layer.stride, layer.size // 2)
     (top, bottom), (left, right) = layer.pad
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, layer.stride)
+    k, s = layer.size, layer.stride
+    h, wd = x.shape[2], x.shape[3]
+    out_h = (h + top + bottom - k) // s + 1
+    out_w = (wd + left + right - k) // s + 1
+    if ((h + 2 * top - k) // s + 1 >= out_h
+            and (wd + 2 * left - k) // s + 1 >= out_w):
+        return F.conv2d(x, w, b, s, (top, left))[:, :, :out_h, :out_w]
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, s)
 
 
 class FusedDarknet(nn.Module):
@@ -501,3 +518,10 @@ class Darknet(nn.Module):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         return _walk(self.spec, x,
                      functools.partial(self._conv, group=process_group))
+
+
+def count_params(params: Dict) -> int:
+    """Number of elements in a params (or state) dict of ``layer_key``
+    entries."""
+    return sum(int(v.numel()) for layer in params.values()
+               for v in layer.values())

@@ -8,10 +8,11 @@ Torch counterpart of ``rotate_yolov3_tpu/models/yolo_head.py``. Per cell:
     obj, cls = sigmoid
 
 Anchors are (wh-major, angle-minor): anchor k = (wh[k // n_ang],
-angles[k % n_ang]). ``decode_gathered`` ports the uniform-na path of the
-reference (every cfg in ``cfg/`` has one na for all heads): the K candidate
-cell rows are gathered once, through kernel A (``ops.gather_rows``), from
-the head maps in place.
+angles[k % n_ang]). ``decode_gathered`` ports both paths of the reference:
+with one na for all heads (every cfg in ``cfg/``) the K candidate cell rows
+are gathered once, through kernel A (``ops.gather_rows``), from the head
+maps in place; heads of different na take the per-head path, one launch
+of kernel A per head.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .darknet import YoloSpec
+from .darknet import NetworkSpec, YoloSpec
 
 # Max angle offset a head can regress away from its anchor's angle (radians).
 ANGLE_RANGE = math.pi / 6
@@ -141,14 +142,14 @@ def decode_gathered(head_raws: Sequence[torch.Tensor],
     With one na for all heads, ``idx // na`` is the global cell row and
     ``idx % na`` the anchor: one row gather (kernel A) over the heads' cell
     rows, read in place as (B, H*W, na·no) tables, then the anchor's ``no``
-    fields are picked from the gathered row.
+    fields are picked from the gathered row. Heads of different na take
+    ``_decode_gathered_perhead``, one launch of kernel A per head.
     """
     from ..ops.gather_rows import gather_rows
 
     if len({s.na for s in yolo_specs}) != 1:
-        raise NotImplementedError(
-            "decode_gathered: heads with different na (the reference's "
-            "per-head path) are not ported yet")
+        return _decode_gathered_perhead(head_raws, yolo_specs, idx,
+                                        field_major)
     b, k = idx.shape
     no, na = yolo_specs[0].no, yolo_specs[0].na
 
@@ -183,6 +184,51 @@ def decode_gathered(head_raws: Sequence[torch.Tensor],
     return _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v)
 
 
+def _decode_gathered_perhead(head_raws, yolo_specs, idx, field_major):
+    """``decode_gathered`` for heads that differ in na: per head, the rows
+    of ``idx`` inside it (``local = idx - offset``) gather their cells
+    through kernel A, one launch on that head's own (B, H*W, na·no) table
+    in place, at clipped indices (``safe``), and pick the anchor's ``no``
+    fields; rows outside the head keep the previous value, so a row in no
+    head (negative, or past the last) decodes all-zero raw values, as the
+    reference's ``where`` chain does."""
+    from ..ops.gather_rows import gather_rows
+
+    b, k = idx.shape
+    no = yolo_specs[0].no
+    dev = idx.device
+    zf = torch.zeros((b, k), dtype=torch.float32, device=dev)
+    stride_v, gx, gy = zf, zf, zf
+    aw_v, ah_v, aang_v = zf, zf, zf
+    rows = torch.zeros((b, k, no), dtype=torch.float32, device=dev)
+    f = torch.arange(no, device=dev, dtype=torch.int64)
+    offset = 0
+    for raw, s in zip(head_raws, yolo_specs):
+        h, w, na = raw.shape[1], raw.shape[2], s.na
+        n = h * w * na
+        local = idx - offset
+        in_head = (local >= 0) & (local < n)
+        safe = local.clamp(0, n - 1)
+        cell = torch.div(safe, na, rounding_mode="floor")
+        a_idx = (safe - cell * na).long()
+        r_cells = gather_rows(raw.reshape(b, h * w, na * no).contiguous(),
+                              cell.to(torch.int32).contiguous())
+        a = a_idx[..., None]
+        lanes = f * na + a if field_major else a * no + f
+        picked = torch.gather(r_cells, 2, lanes).float()     # (B, K, no)
+        rows = torch.where(in_head[..., None], picked, rows)
+        stride_v = torch.where(in_head, float(s.stride), stride_v)
+        gx = torch.where(in_head, (cell % w).float(), gx)
+        gy = torch.where(in_head, torch.div(cell, w, rounding_mode="floor")
+                         .float(), gy)
+        awh_t, aang_t = anchor_tables(s, dev)
+        aw_v = torch.where(in_head, awh_t[a_idx, 0], aw_v)
+        ah_v = torch.where(in_head, awh_t[a_idx, 1], ah_v)
+        aang_v = torch.where(in_head, aang_t[a_idx], aang_v)
+        offset += n
+    return _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v)
+
+
 def _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v):
     """(B, K, no) raw rows + per-row grid/anchor metadata -> (B, K, 6+nc)."""
     xy = (torch.sigmoid(rows[..., 0:2])
@@ -194,3 +240,11 @@ def _decode_rows(rows, stride_v, gx, gy, aw_v, ah_v, aang_v):
     cls = torch.sigmoid(rows[..., 6:])
     return torch.cat([xy, wh, theta, obj, cls], dim=-1)
 
+
+def num_predictions(spec: NetworkSpec) -> int:
+    """Total decoded prediction count for a square net-input image."""
+    n = 0
+    for ys in spec.yolo_specs:
+        g = spec.img_size // ys.stride
+        n += g * g * ys.na
+    return n

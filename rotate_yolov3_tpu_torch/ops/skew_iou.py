@@ -9,8 +9,11 @@ centroid and the masked shoelace gives the area.
 
 This is the reference's off-TPU IoU oracle, and the default
 ``iou_matrix_fn`` that ``skew_iou_cuda.skew_iou_matrix_auto`` takes for a
-tensor on the CPU. The loss and the quad IoU of evaluation are not ported
-yet.
+tensor on the CPU. Every selection is a ``torch.where``, so autograd
+differentiates it almost everywhere: ``skew_iou_loss`` is the skew-IoU
+regression loss. The intersection makes no rectangle assumption, so
+``quad_iou`` / ``quad_iou_matrix`` give the exact IoU of convex quads
+(the DOTA devkit's polygon IoU).
 """
 
 from __future__ import annotations
@@ -116,3 +119,44 @@ def skew_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise exact IoU matrix: (N, 5) x (M, 5) -> (N, M), or batched
     (B, N, 5) x (B, M, 5) -> (B, N, M)."""
     return skew_iou(a[..., :, None, :], b[..., None, :, :])
+
+
+def skew_iou_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """1 - skew-IoU regression loss of broadcastable (..., 5) boxes,
+    differentiable almost everywhere."""
+    return 1.0 - skew_iou(pred, target)
+
+
+def quad_area(quads: torch.Tensor) -> torch.Tensor:
+    """Shoelace area of (..., 4, 2) quads (vertices in order)."""
+    x, y = quads[..., 0], quads[..., 1]
+    xn = torch.roll(x, -1, dims=-1)
+    yn = torch.roll(y, -1, dims=-1)
+    return 0.5 * torch.abs(torch.sum(x * yn - xn * y, dim=-1))
+
+
+def _ccw_quads(quads: torch.Tensor) -> torch.Tensor:
+    """Each quad in counter-clockwise order (the inside tests assume it)."""
+    x, y = quads[..., 0], quads[..., 1]
+    signed = 0.5 * torch.sum(x * torch.roll(y, -1, dims=-1)
+                             - torch.roll(x, -1, dims=-1) * y, dim=-1)
+    return torch.where((signed >= 0)[..., None, None], quads,
+                       torch.flip(quads, dims=(-2,)))
+
+
+def quad_iou(q1, q2) -> torch.Tensor:
+    """Elementwise exact IoU of broadcastable (..., 4, 2) convex quads."""
+    q1 = _ccw_quads(torch.as_tensor(q1, dtype=torch.float32))
+    q2 = _ccw_quads(torch.as_tensor(q2, dtype=torch.float32))
+    q1, q2 = torch.broadcast_tensors(q1, q2)
+    inter = _pair_intersection_area(q1, q2)
+    a1, a2 = quad_area(q1), quad_area(q2)
+    inter = torch.minimum(inter, torch.minimum(a1, a2))
+    return inter / (a1 + a2 - inter + _EPS)
+
+
+def quad_iou_matrix(a, b) -> torch.Tensor:
+    """Pairwise exact quad IoU: (N, 4, 2) x (M, 4, 2) -> (N, M)."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    b = torch.as_tensor(b, dtype=torch.float32)
+    return quad_iou(a[:, None], b[None, :])

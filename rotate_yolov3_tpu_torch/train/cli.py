@@ -50,8 +50,8 @@ RANK_WAIT_S = 3600.0
 def train(opt):
     """Train as the flags say; returns the best mAP of the per-epoch
     evals (-1 without eval)."""
-    from ..detector import resolve_device
     from ..parallel.mesh import launch, make_mesh
+    from ..utils.device import resolve_device
 
     device = resolve_device(opt.device)
     if opt.devices and opt.devices > 1:

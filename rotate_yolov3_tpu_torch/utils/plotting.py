@@ -1,8 +1,9 @@
-"""Rotated-box drawing.
+"""Rotated-box drawing and the training-curve plot.
 
-Rotated rectangles drawn on images for detect.py: the ``draw_detections``
-of ``rotate_yolov3_tpu/utils/plotting.py`` (cv2 imported lazily). The
-training-curve plot waits for the training port.
+The counterparts of ``rotate_yolov3_tpu/utils/plotting.py``: rotated
+rectangles drawn on images for detect (``draw_detections``, cv2 imported
+lazily) and the plot of the per-epoch ``results.txt`` that the train CLI
+appends (``plot_results``, matplotlib imported lazily).
 """
 
 from __future__ import annotations
@@ -47,3 +48,25 @@ def draw_detections(img: np.ndarray, dets: np.ndarray,
         cv2.putText(out, label, org, cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1,
                     cv2.LINE_AA)
     return out
+
+
+def plot_results(results_path: str = "results.txt",
+                 out_path: str = "results.png") -> None:
+    """Plot the per-epoch results table the train CLI appends (loss terms,
+    P, R, mAP) into ``out_path``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    data = np.loadtxt(results_path, ndmin=2)
+    if data.size == 0:
+        return
+    cols = ["box", "obj", "cls", "angle", "total", "P", "R", "mAP"]
+    fig, axes = plt.subplots(2, 4, figsize=(14, 6))
+    for i, (ax, name) in enumerate(zip(axes.flat, cols)):
+        if 1 + i < data.shape[1]:
+            ax.plot(data[:, 0], data[:, 1 + i])
+        ax.set_title(name)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)

@@ -155,10 +155,15 @@ def test_detector_slice_matches_jax(tmp_path, cfg, img_size):
 
 
 def test_detector_refuses_unported_options():
-    """``packed_stem`` is refused; ``devices=2`` runs two replicas whose
-    gathered detections equal one device's."""
+    """Every option is ported: ``packed_stem`` is refused only where the
+    cfg's stem has no packed form (the tiny cfg's layer 1 is a max-pool;
+    the reference asserts there too, and
+    ``tests/test_torch_port_packed_stem.py`` holds the packed HRSC stem to
+    the JAX package); ``devices=2`` runs two replicas whose gathered
+    detections equal one device's; an unknown ``iou_algo`` and a wrong
+    image size raise."""
     cfg = os.path.join(ROOT, "cfg/yolov3-tiny-rotate-hrsc.cfg")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="packed form"):
         Detector(cfg, img_size=64, device="cpu", packed_stem=True)
     imgs = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3),
                                              dtype=np.uint8)
