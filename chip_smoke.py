@@ -155,6 +155,21 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      bench (``bench.CONTROLS``: fp8 kernels, a layer without its bias, bf16
      boxes) put in the max_det 128 cell's program's place, which must give
      ``correct`` false.
+ 17. the conv epilogue (``ops.conv_epilogue``: bias, activation and the
+     shortcut add after each convolution of the backbone, in one pass) on
+     the HRSC ``Detector`` at 608²: layer by layer through the fused walk's
+     hooks, the kernel against its plain version on the same convolution
+     output, bit for bit (NaN in the same places), at B = ``EPI_B`` in bf16
+     and f32 (TF32 off) on every conv layer's shape with and without a
+     residual, finite and with NaN and +-inf planted, and at the main
+     path's B = 128, bf16, on the path's own inputs; the heads bit-equal to
+     the eager program (each convolution with its bias, ``F.leaky_relu``,
+     the walk's adds) in f32 and with the packed stem at B = 8 and in bf16
+     at B = 128; 75 launches per ``Detector.__call__``; the eager program's
+     trace (which op launches which kernel, with its bytes and time) and
+     none of its three passes left in the fused backbone's; the kernel's
+     device time per call beside its bytes bound and the eager passes'
+     time, and the backbone eager against fused in turns.
 Every kernel's bound (``bound_ms``, ``bound_by``) is the larger of the fp32
 operations its inputs need over ``FP32_PEAK`` and its bytes over
 ``MEM_PEAK``; a pair's operations are counted in the SASS of probe kernels
@@ -170,6 +185,7 @@ package beside it, the script exits with an error and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -246,6 +262,8 @@ AUG_TOL = 1e-5
 # of the mixed-na cfg's first [yolo] (na 12, the other heads 18)
 STEM_TOL = 1e-4
 MIXED_MASK = (6, 7)
+# phase 17: batch of the conv epilogue's layer-by-layer check at every shape
+EPI_B = 2
 
 # every kernel of the port, each pair algo of B, C and E its own entry:
 # name -> (source, the TPU kernel's pallas_call it replaces)
@@ -264,6 +282,10 @@ _IOU = (_CSRC + "skew_iou_matrix.cu",
 _GATHER = (_CSRC + "gather_rows.cu",
            "rotate_yolov3_tpu/ops/gather_rows.py:100")
 KERNELS = {
+    # the port's own kernel: the JAX package leaves bias, activation and the
+    # shortcut add to XLA, which fuses them into the convolution
+    "conv_epilogue": (_CSRC + "conv_epilogue.cu",
+                      "rotate_yolov3_tpu/models/darknet.py:439"),
     "gather_rows": _GATHER, "gather_rows:dota": _GATHER,
     "skew_kill:green": _KILL, "skew_kill:green2": _KILL,
     "skew_kill:candidates": _KILL,
@@ -2679,35 +2701,32 @@ def _stem_times(torch, card, canon, packed, x) -> None:
     """The stem alone, B = len(x), bf16, channels_last, CUDA events: conv0
     + conv1 against conv0' + conv1' as the packed Detector runs them
     (conv0' with the symmetric pad 1, conv1' with pad 1 and its last row
-    and column dropped) and with conv1' after an explicit ``F.pad``; each
-    made dense (channels_last), as layer 2's convolution would."""
+    and column dropped; each convolution finished by the conv epilogue)
+    and with conv1' after an explicit ``F.pad``; each made dense
+    (channels_last), as layer 2's convolution would."""
     import torch.nn.functional as F
 
-    from rotate_yolov3_tpu_torch.models.darknet import (_activate, _conv2d,
+    from rotate_yolov3_tpu_torch.models.darknet import (_LEAKY_SLOPE,
                                                         layer_key)
+    from rotate_yolov3_tpu_torch.ops.conv_epilogue import conv_epilogue
 
     xin = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-
-    def conv(det, layer, y):
-        key = layer_key(layer.index)
-        return _activate(_conv2d(layer, y, det.net.kernels[key],
-                                 det.net.biases[key]), layer.activation)
 
     def dense(y):
         return y.contiguous(memory_format=torch.channels_last)
 
     def stem(det):
         l0, l1 = det.net.spec.layers[:2]
-        return lambda: dense(conv(det, l1, conv(det, l0, xin)))
+        return lambda: dense(det.net._conv(l1, det.net._conv(l0, xin)))
 
     def packed_pad():
         l0, l1 = packed.net.spec.layers[:2]
         (top, bottom), (left, right) = l1.pad
-        y = F.pad(conv(packed, l0, xin), (left, right, top, bottom))
+        y = F.pad(packed.net._conv(l0, xin), (left, right, top, bottom))
         key = layer_key(1)
-        return dense(_activate(F.conv2d(y, packed.net.kernels[key],
-                                        packed.net.biases[key]),
-                               l1.activation))
+        return dense(conv_epilogue(F.conv2d(y, packed.net.kernels[key]),
+                                   packed.net.biases[key], l1.activation,
+                                   slope=_LEAKY_SLOPE))
 
     runs = {"canonical": stem(canon), "packed": stem(packed),
             "packed, conv1' after F.pad": packed_pad}
@@ -3029,6 +3048,358 @@ def phase_bench_twin(torch, card) -> None:
                                  f"passed a wrong program")
 
 
+def _same_bits(torch, got, want):
+    """(NaN in the same places and every other element bit-equal, every
+    element bit-equal NaN payloads included)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, False
+    ints = torch.int16 if got.element_size() == 2 else torch.int32
+    exact = torch.equal(got.view(ints), want.view(ints))
+    nan = want.isnan()
+    same = exact or (torch.equal(got.isnan(), nan) and torch.equal(
+        got.masked_fill(nan, 0).view(ints),
+        want.masked_fill(nan, 0).view(ints)))
+    return same, exact
+
+
+def _eager_heads(torch, net, x):
+    """The backbone as it ran before the conv epilogue: per conv layer
+    ``F.conv2d`` with its bias (cuDNN's convolution, then
+    ``output.add_(bias)``) and ``_activate``; the walk's own shortcut adds.
+    ``x``: (B, H, W, C) in the net's dtype, on the card."""
+    from rotate_yolov3_tpu_torch.models.darknet import (_activate, _conv2d,
+                                                        _walk, layer_key)
+
+    def conv(layer, h):
+        key = layer_key(layer.index)
+        return _activate(_conv2d(layer, h, net.kernels[key],
+                                 net.biases[key]), layer.activation)
+
+    return _walk(net.spec, x.permute(0, 3, 1, 2), conv)
+
+
+def _plant_epilogue(torch, y, bias, res):
+    """Copies of a conv output, its bias and a residual with NaN and +-inf
+    planted: single elements of ``y`` and ``res`` (NaN + -inf among them),
+    one bias channel each of +inf, -inf and NaN."""
+    y, bias = y.clone(), bias.clone()
+    b, c, h, w = y.shape
+    nan, inf = float("nan"), float("inf")
+    y[0, 0, 0, 0], y[0, 1 % c, 0, w - 1] = nan, inf
+    y[b - 1, c - 1, h - 1, w - 1] = -inf
+    y[b // 2, c // 2, h // 2, w // 2] = nan
+    bias[c // 3], bias[(2 * c) // 3], bias[c - 1] = inf, -inf, nan
+    if res is not None:
+        res = res.clone()
+        res[0, 0, 0, 0], res[0, 0, h - 1, 0] = -inf, nan
+        res[b - 1, c - 1, h - 1, w - 1], res[0, 1 % c, 0, w - 1] = inf, -inf
+    return y, bias, res
+
+
+def _epilogue_walk(torch, det, x, extra: bool, timed: bool = False):
+    """Walk ``det``'s network on ``x`` (B, H, W, C) through the fused walk's
+    two hooks: each conv layer's raw convolution finished by the kernel
+    and by the plain version on the same inputs (the path's own residual),
+    which must agree bit for bit; with ``extra`` also the other residual
+    case (a drawn residual where the path has none, none where it has
+    one) and both cases with NaN and +-inf planted (``_plant_epilogue``).
+    Returns the heads of the walk (the kernel's outputs); per conv layer
+    (index, shape, residual on the path, activation, cases held, cases
+    also equal in NaN payloads, and with ``timed`` the kernel's and the
+    plain version's ms on the path's inputs, ``_spun_ms``); and the
+    largest |kernel - plain| on the path's own inputs."""
+    from rotate_yolov3_tpu_torch.models import darknet
+    from rotate_yolov3_tpu_torch.models.darknet import (_conv2d, _walk,
+                                                        layer_key)
+    from rotate_yolov3_tpu_torch.ops.conv_epilogue import (conv_epilogue,
+                                                           conv_epilogue_ref)
+
+    net, slope, cl = det.net, darknet._LEAKY_SLOPE, torch.channels_last
+    gen = torch.Generator(device=x.device).manual_seed(17)
+    layers, errs = [], []
+
+    def held(what, y, bias, act, res):
+        got = conv_epilogue(y.clone(), bias, act, res, slope)
+        want = conv_epilogue_ref(y.clone(), bias, act, res, slope)
+        same, exact = _same_bits(torch, got, want)
+        if not same:
+            bad = ~((got == want) | (got.isnan() & want.isnan()))
+            raise AssertionError(
+                f"conv epilogue {what}: the kernel differs from its plain "
+                f"version at {int(bad.sum())} of {got.numel()} elements, "
+                f"first {bad.nonzero()[0].tolist()}")
+        return got, exact, _max_err(got, want)
+
+    def conv(layer, h, residual=None):
+        key = layer_key(layer.index)
+        y = _conv2d(layer, h, net.kernels[key], None).contiguous(
+            memory_format=cl)
+        bias, act = net.biases[key], layer.activation
+        what = f"layer {layer.index} {tuple(y.shape)} {str(y.dtype)[6:]}"
+        out, exact, err = held(what, y, bias, act, residual)
+        errs.append(err)
+        cases, n_exact = 1, int(exact)
+        if extra:
+            other = None if residual is not None else torch.randn(
+                y.shape, generator=gen, device=y.device).to(y.dtype) \
+                .contiguous(memory_format=cl)
+            for res in (residual, other):
+                if res is not residual:
+                    n_exact += held(what + " other residual", y, bias, act,
+                                    res)[1]
+                    cases += 1
+                py, pb, pr = _plant_epilogue(torch, y, bias, res)
+                n_exact += held(what + " planted", py, pb, act, pr)[1]
+                cases += 1
+        ms = (None, None)
+        if timed:
+            buf = y.clone()
+            ms = tuple(_spun_ms(torch, lambda f=f: f(buf, bias, act, residual,
+                                                       slope))
+                       for f in (conv_epilogue, conv_epilogue_ref))
+        layers.append((layer.index, tuple(y.shape), residual is not None,
+                       act, cases, n_exact) + ms)
+        return out
+
+    heads = _walk(net.spec, x.permute(0, 3, 1, 2), conv, conv_shortcut=conv)
+    return heads, layers, max(errs)
+
+
+def _epilogue_bytes(layers, esize: int) -> int:
+    """Bytes the conv epilogue of one call must move: each output read and
+    written once, the residual read once, the bias once."""
+    return sum(esize * ((3 if res else 2) * math.prod(shape) + shape[1])
+               for _, shape, res, *_ in layers)
+
+
+# the eager passes the conv epilogue replaces: the bias add inside the
+# convolution, the activation, the shortcut add
+_PASSES = ("aten::add_", "aten::leaky_relu", "aten::add")
+
+
+def _op_kernels(torch, fn, shapes: bool = False, esize: int = 2):
+    """torch.profiler over one call of ``fn()`` (after one untimed call):
+    per (CPU op, device kernel) the launches, the device µs and, with
+    ``shapes``, for the ops of ``_PASSES`` the bytes its inputs' shapes
+    imply (each input read once, the first written once, ``esize`` bytes
+    an element; counted once per op, which may launch the kernel more
+    than once) and the op that called it: launches and the first input
+    shape seen under each caller; the set of CPU op names seen; and
+    whether every op of ``_PASSES`` has its kernels (torch.profiler can
+    drop device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups: dict = {}
+    ops = set()
+    complete = True
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        ops.add(e.name)
+        complete &= e.name not in _PASSES or bool(e.kernels)
+        for j, k in enumerate(e.kernels):
+            g = groups.setdefault((e.name, k.name), {
+                "launches": 0, "us": 0.0, "bytes": 0, "callers": {}})
+            g["launches"] += 1
+            g["us"] += k.duration
+            if shapes and e.name in _PASSES and j == 0:
+                sizes = [math.prod(s) for s in e.input_shapes
+                         if isinstance(s, list) and s]
+                g["bytes"] += esize * (sum(sizes) + sizes[0])
+                caller = e.cpu_parent.name if e.cpu_parent else "(top)"
+                n, shape = g["callers"].get(caller, (0, e.input_shapes[0]))
+                g["callers"][caller] = (n + 1, shape)
+    return groups, ops, complete
+
+
+def _spun_ms(torch, fn, reps: int = 3) -> float:
+    """CUDA-event ms per call of ``reps`` back-to-back ``fn()`` queued
+    behind a ~1 ms spin of the card (the bench's ``SPIN_CYCLES``), so the
+    host's launches stay out of the window."""
+    from rotate_yolov3_tpu_torch.bench import SPIN_CYCLES
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _heads_vs_eager(torch, card, what, det, imgs) -> None:
+    """``det``'s heads on ``imgs`` bit-equal to the eager program's."""
+    with torch.inference_mode():
+        got = det.heads(imgs)
+        want = _eager_heads(torch, det.net, det._images(imgs))
+    if not all(_same_bits(torch, g, w)[0] for g, w in zip(got, want)):
+        raise AssertionError(f"conv epilogue: {what} heads differ from the "
+                             f"eager program")
+    log(f"conv epilogue: {what} Detector heads B={len(imgs)} "
+        f"@{imgs.shape[1]} bit-equal to the eager program [{card}]")
+
+
+def phase_epilogue(torch, card, results) -> None:
+    """Phase 17: the conv epilogue kernel (see the module docstring)."""
+    from rotate_yolov3_tpu_torch.detector import Detector
+    from rotate_yolov3_tpu_torch.ops.conv_epilogue import conv_epilogue
+    from rotate_yolov3_tpu_torch.ops.gather_rows import gather_rows
+    from rotate_yolov3_tpu_torch.ops.skew_iou_cuda import skew_kill_matrix
+
+    img = NET_IMG or 608
+    gen = torch.Generator().manual_seed(21)
+    imgs = torch.randint(0, 256, (B_BENCH, img, img, 3), generator=gen,
+                         dtype=torch.uint8).to(DEVICE)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (a) every conv output shape at B = EPI_B, bf16 and f32, with and
+        # without a residual, finite and planted; the f32 heads and the
+        # packed stem's bf16 heads against the eager program
+        for dtype in (torch.bfloat16, torch.float32, "packed"):
+            det = Detector(CFG, img_size=img, conf_thres=CONF,
+                           nms_thres=THR, max_det=128,
+                           compute_dtype=torch.bfloat16 if dtype == "packed"
+                           else dtype, seed=0, device=DEVICE,
+                           packed_stem=dtype == "packed")
+            name = "packed stem bf16" if dtype == "packed" else \
+                str(dtype)[6:]
+            if dtype != "packed":
+                with torch.inference_mode():
+                    _, layers, _ = _epilogue_walk(
+                        torch, det, det._images(imgs[:EPI_B]), extra=True)
+                kinds = {(s[1:], r, a) for _, s, r, a, *_ in layers}
+                log(f"conv epilogue {name} B={EPI_B} @{img}: {len(layers)} "
+                    f"conv layers, {len(kinds)} (shape, residual, "
+                    f"activation) kinds, {sum(l[4] for l in layers)} cases "
+                    f"bit-equal to the plain version (NaN in the same "
+                    f"places), {sum(l[5] for l in layers)} of them in NaN "
+                    f"payloads too [{card}]")
+            if dtype != torch.bfloat16:
+                _heads_vs_eager(torch, card, name, det, imgs[:B_CHECK])
+            del det
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+    det = Detector(CFG, img_size=img, conf_thres=CONF, nms_thres=THR,
+                   max_det=128, compute_dtype=torch.bfloat16, seed=0,
+                   device=DEVICE)
+    n_conv = len(det.spec.conv_specs)
+    # (b) the main path: counters from 0, through the entry point only
+    conv_epilogue.launches = 0
+    gather_rows.launches = 0
+    skew_kill_matrix.launches = 0
+    dets, mask = det(imgs)
+    torch.cuda.synchronize()
+    launches = {"conv_epilogue": conv_epilogue.launches,
+                "gather_rows": gather_rows.launches,
+                "skew_kill": skew_kill_matrix.launches}
+    if launches != {"conv_epilogue": n_conv, "gather_rows": 1,
+                    "skew_kill": 1}:
+        raise AssertionError(f"conv epilogue: launches of one Detector call "
+                             f"{launches}, not {n_conv}, 1, 1")
+    _check_detections(torch, dets, mask, det.max_det)
+    results["conv_epilogue"] = {"launches": launches["conv_epilogue"],
+                                "library_ms": None}
+    with torch.inference_mode():
+        x = det._images(imgs)
+        walked, layers, err = _epilogue_walk(torch, det, x, extra=False,
+                                             timed=True)
+        heads = det.heads(imgs)
+        eager = _eager_heads(torch, det.net, x)
+        for what, other in (("the eager program", eager),
+                            ("the kernel-by-plain walk", walked)):
+            if not all(_same_bits(torch, g, w)[0]
+                       for g, w in zip(heads, other)):
+                raise AssertionError(f"conv epilogue: the B={B_BENCH} bf16 "
+                                     f"heads differ from {what}")
+        del walked, eager
+    results["conv_epilogue"]["max_abs_err"] = err
+    log(f"conv epilogue bf16 B={B_BENCH} @{img}: launches of one Detector "
+        f"call {launches}; every layer's kernel output bit-equal to the "
+        f"plain version on the path's inputs; heads bit-equal to the eager "
+        f"program [{card}]")
+
+    # (c) the eager program's trace: which op launches which kernel
+    def eager_call():
+        return _eager_heads(torch, det.net, x)
+
+    def fused_call():
+        return det.net(x)
+
+    with torch.inference_mode():
+        for _ in range(4):
+            groups, _, complete = _op_kernels(torch, eager_call, shapes=True)
+            if complete:
+                break
+        else:
+            log("(no profile of the eager backbone recorded every pass's "
+                "kernels: torch.profiler dropped device events, so the "
+                "passes' times below read low)")
+        total_us = sum(g["us"] for g in groups.values()) or 1.0
+        log(f"eager backbone trace, bf16 B={B_BENCH} (one call; op | "
+            f"kernel | launches | device ms | GB | GB/s | share | called "
+            f"from):")
+        for (op, kname), g in sorted(groups.items(),
+                                     key=lambda kv: -kv[1]["us"])[:12]:
+            gb = (f"{g['bytes'] / 1e9:.2f} | "
+                  f"{g['bytes'] / 1e3 / g['us']:.0f}") if g["bytes"] \
+                else "- | -"
+            callers = ", ".join(f"{c} {n} (first {shape})" for c, (n, shape)
+                                in g["callers"].items())
+            log(f"  {op} | {kname[:90]} | {g['launches']} | "
+                f"{g['us'] / 1e3:.3f} | {gb} | "
+                f"{100 * g['us'] / total_us:.1f}% | {callers}")
+        plain_us = {op: sum(g["us"] for (o, _), g in groups.items()
+                            if o == op) for op in _PASSES}
+        plain_n = {op: sum(g["launches"] for (o, _), g in groups.items()
+                           if o == op) for op in _PASSES}
+        fused_groups, fused_ops, _ = _op_kernels(torch, fused_call)
+        left = fused_ops & set(_PASSES)
+        if left:
+            raise AssertionError(f"conv epilogue: the fused backbone still "
+                                 f"runs {sorted(left)}")
+        # (d) times: the kernel and the plain version per call, the sums
+        # of their per-layer times on the path's inputs (CUDA events: the
+        # profiler drops device events late in this script); the backbone
+        # in turns
+        epi_ms = sum(l[6] for l in layers)
+        plain_ms = sum(l[7] for l in layers)
+        turns = {}
+        for name, fn in (("eager", eager_call), ("fused", fused_call),
+                         ("fused", fused_call), ("eager", eager_call)):
+            turns.setdefault(name, []).append(time_ms(torch, fn, reps=5,
+                                                      warmup=1))
+    nbytes = _epilogue_bytes(layers, 2)
+    b = bound(0, nbytes)
+    results["conv_epilogue"].update(ms=epi_ms, plain_ms=plain_ms, **b)
+    log(f"conv epilogue bf16 B={B_BENCH}: {epi_ms:.3f} ms of kernel per call "
+        f"({n_conv} launches, CUDA events layer by layer), plain version "
+        f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
+        f"{nbytes / 1e9:.2f} GB), share {100 * b['bound_ms'] / epi_ms:.1f}%; "
+        f"in the eager trace, the passes it replaces (launches, ms) "
+        + ", ".join(f"{op} {plain_n[op]}, {us / 1e3:.3f}"
+                    for op, us in plain_us.items())
+        + "; backbone ms in turns "
+        + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs)
+                    for k, vs in turns.items())
+        + "; fused trace ops with kernels: "
+        + ", ".join(sorted({op for op, _ in fused_groups})) + f" [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -3066,6 +3437,7 @@ def main() -> int:
     run(phase_parallel, torch, card)
     run(phase_rest, torch, card)
     run(phase_bench_twin, torch, card)
+    run(phase_epilogue, torch, card, results)
     log("seconds by phase: " + ", ".join(seconds))
 
     kernels = []

@@ -29,10 +29,11 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-file flags: the skew-IoU arithmetic must not be contracted into FMAs
-# (see the note at the top of csrc/skew_green.cuh)
+# (see the note at the top of csrc/skew_green.cuh), nor the conv epilogue's
+# slope product into its residual add (csrc/conv_epilogue.cu)
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "skew_kill": ("-fmad=false",), "nms_greedy": ("-fmad=false",),
-    "skew_iou_matrix": ("-fmad=false",)}
+    "skew_iou_matrix": ("-fmad=false",), "conv_epilogue": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # a Detector's replicas launch kernels from one thread each: the first

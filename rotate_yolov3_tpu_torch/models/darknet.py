@@ -27,6 +27,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_epilogue import conv_epilogue
+
 _BN_EPS = 1e-5
 _BN_UPDATE = 0.1        # running = (1-u)*running + u*batch
 _LEAKY_SLOPE = 0.1
@@ -288,20 +290,40 @@ def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation}")
 
 
-def _walk(spec: NetworkSpec, x: torch.Tensor, conv) -> List[torch.Tensor]:
+def _fused_shortcuts(spec: NetworkSpec) -> Dict[int, ShortcutSpec]:
+    """conv layer index -> the [shortcut] right after it, for every conv
+    layer whose own output is not cached: only the sum is ever read."""
+    return {conv.index: sc for conv, sc in zip(spec.layers, spec.layers[1:])
+            if isinstance(conv, ConvSpec) and isinstance(sc, ShortcutSpec)
+            and conv.index not in spec.routs}
+
+
+def _walk(spec: NetworkSpec, x: torch.Tensor, conv, *,
+          conv_shortcut=None) -> List[torch.Tensor]:
     """The network walk on an NCHW ``x``: ``conv(layer, x)`` runs one conv
     layer (conv, BN or bias, activation); shortcuts, routes, upsamples and
     max-pools are the same in every forward. Returns the head maps as
-    (B, H, W, na·no) views, in YOLO-layer order."""
+    (B, H, W, na·no) views, in YOLO-layer order.
+
+    With ``conv_shortcut``, a conv layer of ``_fused_shortcuts`` runs as
+    ``conv_shortcut(layer, x, residual)``: the conv layer, then + the
+    cached ``residual`` of the [shortcut] after it, whose output it stands
+    for. Cached tensors are only read."""
     cache: Dict[int, torch.Tensor] = {}
     heads: List[torch.Tensor] = []
     routs = set(spec.routs)
+    fused = _fused_shortcuts(spec) if conv_shortcut is not None else {}
+    added = {sc.index for sc in fused.values()}
     for layer in spec.layers:
         i = layer.index
         if isinstance(layer, ConvSpec):
-            x = conv(layer, x)
+            if i in fused:
+                x = conv_shortcut(layer, x, cache[fused[i].frm])
+            else:
+                x = conv(layer, x)
         elif isinstance(layer, ShortcutSpec):
-            x = x + cache[layer.frm]
+            if i not in added:
+                x = x + cache[layer.frm]
         elif isinstance(layer, RouteSpec):
             if len(layer.layers) == 1:
                 x = cache[layer.layers[0]]
@@ -347,7 +369,11 @@ class FusedDarknet(nn.Module):
     """Inference-only forward with BN pre-folded (see ``fuse_bn``).
 
     ``forward`` takes (B, H, W, C) activations in the weights' dtype and
-    returns the raw head maps as (B, H, W, na·no) in YOLO-layer order.
+    returns the raw head maps as (B, H, W, na·no) in YOLO-layer order. Each
+    conv layer is one convolution and one ``ops.conv_epilogue`` pass, which
+    also takes the add of a [shortcut] right after the layer
+    (``_fused_shortcuts``). Kernels and biases are read from
+    ``self.kernels`` and ``self.biases`` at every call.
     """
 
     def __init__(self, spec: NetworkSpec, fused: Dict[str, Dict]):
@@ -366,13 +392,25 @@ class FusedDarknet(nn.Module):
                                             requires_grad=False)
 
     def _conv(self, layer: ConvSpec, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_shortcut(layer, x, None)
+
+    def _conv_shortcut(self, layer: ConvSpec, x: torch.Tensor,
+                       residual: Optional[torch.Tensor]) -> torch.Tensor:
+        """One conv layer: the convolution without its bias, then bias,
+        activation and (given a ``residual``) the shortcut add in one
+        ``conv_epilogue`` pass, in place on the convolution's output."""
         key = layer_key(layer.index)
-        x = _conv2d(layer, x, self.kernels[key], self.biases[key])
-        return _activate(x, layer.activation)
+        y = _conv2d(layer, x, self.kernels[key], None)
+        if not y.is_contiguous(memory_format=torch.channels_last):
+            # a sliced output (the packed stem's conv1')
+            y = y.contiguous(memory_format=torch.channels_last)
+        return conv_epilogue(y, self.biases[key], layer.activation, residual,
+                             _LEAKY_SLOPE)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         # NCHW view, channels_last memory
-        return _walk(self.spec, x.permute(0, 3, 1, 2), self._conv)
+        return _walk(self.spec, x.permute(0, 3, 1, 2), self._conv,
+                     conv_shortcut=self._conv_shortcut)
 
 
 class _AllReduceSum(torch.autograd.Function):

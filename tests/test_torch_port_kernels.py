@@ -383,9 +383,11 @@ def test_new_wrappers_refuse_non_cuda_devices_and_bad_inputs():
 
 
 def test_build_lists_five_kernels_with_their_flags():
-    assert _build.kernel_names() == ("decode_rows", "gather_rows",
-                                     "nms_greedy", "skew_iou_matrix",
-                                     "skew_kill")
-    for name in ("skew_kill", "nms_greedy", "skew_iou_matrix"):
+    # the five TPU kernels' ports and the conv epilogue
+    assert _build.kernel_names() == ("conv_epilogue", "decode_rows",
+                                     "gather_rows", "nms_greedy",
+                                     "skew_iou_matrix", "skew_kill")
+    for name in ("skew_kill", "nms_greedy", "skew_iou_matrix",
+                 "conv_epilogue"):
         assert "-fmad=false" in _build.flags(name)
     assert "-fmad=false" not in _build.flags("decode_rows")
